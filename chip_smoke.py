@@ -18,12 +18,27 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
     kernel must have launched. The kernel path's answers must equal the
     plain path's (the same index on the CPU) modulo distance ties;
     recall@30 vs brute force is printed;
- 3. CLI: ``build_index`` -> ``serve`` at the CLI defaults (20k chains,
-    (32, 64)), 64 queries, on the card;
- 4. kernels vs their plain PyTorch versions on the card, at the shapes
+ 3. depth-3 path, the configuration's beam serving shapes
+    (``search_512q_d3_beam_seg``: beam 64, segmented node evaluation;
+    ``search_512q_d3_calib``: widths (64, 16), temperatures (1.0, 0.8,
+    0.7), segmented, prebuilt planes) on a (64, 64, 64) K-Means stack
+    built over the main path's 518,576 embeddings (no second generation),
+    bfloat16 store. Counts are set to 0 before the build and read after
+    both serving points: beam_eval, the top-k filter and kmeans_assign
+    must each have launched. Per point: QPS over 4 timed 512-query kNN
+    batches, stage times, recall@30 vs exact enumeration and vs brute
+    force, and the kernel path against the plain segmented and the gather
+    paths (log-probs, leaf sets, ranking and kNN answers modulo ties);
+ 4. CLI: ``build_index`` -> ``serve`` at the CLI defaults (20k chains,
+    (32, 64)), 64 queries, on the card; then a depth-3 segmented beam
+    index (16, 16, 16) with prebuilt planes, served from its meta
+    defaults, which must launch beam_eval;
+ 5. kernels vs their plain PyTorch versions on the card, at the shapes
     the main path gave them (512 queries, the full build's candidate
     capacity, float32 and bfloat16 stores, 3 metrics; 518,576 x 256 x 45
-    for the assignment), with CUDA-event times and the bound of each.
+    for the assignment; 32,768 (query, prefix) pairs over 4,096 nodes of
+    arity 64 for beam_eval, 3 families), with CUDA-event times and the
+    bound of each.
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or run
@@ -60,6 +75,21 @@ F32_FLOP_PER_S = 67e12
 # (the JAX suite's end-to-end bound), the others its kernel TOL.
 TOL = {"euclidean": 2e-3, "sq_euclidean": 1e-4, "cosine": 1e-5}
 ASSIGN_TOL = 1e-4  # min squared distance, and the margin of a label swap
+# |beam_eval - plain| child log-probs: float32 dots over d = 45 summed in
+# another order, and the kmeans form |q|^2 + |c|^2 - 2 q.c (|q|^2 ~ 15)
+# cancels; the same bound holds for leaf log-probs summed over 3 levels
+LOGP_TOL = 1e-4
+
+# repro.configs.lmi_protein SHAPES: the depth-3 beam serving points
+D3_ARITIES = (64, 64, 64)
+D3_POINTS = (
+    ("search_512q_d3_beam_seg", dict(beam_width=64, node_eval="segmented", temperatures=None)),
+    ("search_512q_d3_calib", dict(beam_width=(64, 16), node_eval="segmented",
+                                  temperatures=(1.0, 0.8, 0.7))),
+)
+FAMILIES = ("kmeans", "gmm", "kmeans+logreg")
+MAIN_KERNELS = ("kmeans_assign", "lmi_filter_topk_desc", "lmi_filter_range_desc")
+D3_KERNELS = ("kmeans_assign", "lmi_filter_topk_desc", "beam_eval")
 
 
 def fail(msg: str) -> None:
@@ -87,6 +117,23 @@ def time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(torch, fn, reps: int) -> float:
+    """Mean device milliseconds of ``fn``: the calls are queued behind a
+    sleep on the card, so the events time the device's work without the
+    host's launch gaps (``fn`` must not synchronise)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(4e8))  # ~0.2 s at H100 clocks: longer than queueing reps calls
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def bound_ms(n_bytes: float, n_flops: float):
     """(least ms, what bounds it): bytes over HBM rate vs float32 operations
     over the non-tensor-core float32 rate."""
@@ -101,14 +148,269 @@ def errors(got, want):
     return float(diff.max()), float((diff / want.abs().clamp(min=1e-6)).max())
 
 
-def reset(ka_ops, lf_ops) -> None:
-    for counts in (ka_ops.LAUNCHES, lf_ops.LAUNCHES):
+def counters():
+    """The launch counts of every kernel wrapper of the port."""
+    from repro_torch.kernels.beam_eval import ops as be_ops
+    from repro_torch.kernels.kmeans_assign import ops as ka_ops
+    from repro_torch.kernels.lmi_filter import ops as lf_ops
+
+    return (ka_ops.LAUNCHES, lf_ops.LAUNCHES, be_ops.LAUNCHES)
+
+
+def reset() -> None:
+    for counts in counters():
         for name in counts:
             counts[name] = 0
 
 
-def read(ka_ops, lf_ops) -> dict:
-    return {**ka_ops.LAUNCHES, **lf_ops.LAUNCHES}
+def read() -> dict:
+    out = {}
+    for counts in counters():
+        out.update(counts)
+    return out
+
+
+def recall(got, ref, k: int) -> float:
+    """Mean share of each row of ``ref`` (ids, -1 == none) found in ``got``."""
+    import numpy as np
+
+    got, ref = np.asarray(got), np.asarray(ref)
+    return float(np.mean([len(np.intersect1d(got[i][got[i] >= 0], ref[i][ref[i] >= 0])) / k
+                          for i in range(ref.shape[0])]))
+
+
+def ranking_agrees(torch, n_leaves, order_a, logp_a, order_b, logp_b):
+    """(same leaf sets, max |logp diff| by position, max |logp_a of the
+    leaf b ranks at a position - logp_a at that position|): two rankings
+    are equal modulo ties when the sets match and both numbers are small."""
+    same = bool(torch.equal(torch.sort(order_a, dim=1).values, torch.sort(order_b, dim=1).values))
+    pos = float((logp_a - logp_b).abs().max())
+    full = torch.full((order_a.shape[0], n_leaves), float("nan"), device=logp_a.device)
+    full.scatter_(1, order_a, logp_a)
+    tie = float((full.gather(1, order_b) - logp_a).abs().max())
+    return same, pos, tie
+
+
+def depth3_phase(torch, np, index, queries, dev):
+    """Phase 3: the depth-3 beam serving points over the main path's
+    embeddings. -> (beam_eval records by family, the phase's launches)."""
+    from unittest import mock
+
+    from repro_torch.core import filtering, lmi
+    from repro_torch.core import planes as planes_lib
+    from repro_torch.core import store as store_lib
+    from repro_torch.kernels.beam_eval import ops as be_ops, ref as be_ref
+    from repro_torch.kernels.lmi_filter import ops as lf_ops
+
+    k, stop, metric = FULL["k"], FULL["stop"], FULL["metric"]
+    reset()
+    t0 = time.perf_counter()
+    index3 = lmi.build(SEED, index.sorted_embeddings, arities=D3_ARITIES, model_type="kmeans",
+                       device=dev)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    n_obj = index3.n_objects
+    check(np.array_equal(np.sort(index3.sorted_ids.cpu().numpy()), np.arange(n_obj)),
+          "depth-3: an object is missing from the buckets or appears twice")
+    store3 = store_lib.from_lmi(index3, FULL["store_dtype"])
+    planes = {name: planes_lib.from_lmi(index3, kw["temperatures"]) for name, kw in D3_POINTS}
+    sizes = index3.bucket_sizes().cpu().numpy()
+    print(f"depth-3 build {'x'.join(map(str, D3_ARITIES))} over {n_obj} embeddings: "
+          f"{t_build:.2f}s; buckets mean {sizes.mean():.2f} max {sizes.max()} "
+          f"empty {(sizes == 0).sum()}; planes "
+          + ", ".join(f"{n} {p.nbytes() / 2**20:.1f} MB" for n, p in planes.items()), flush=True)
+
+    phase_launches = read()
+    q = queries[:BATCH]
+    nq = q.shape[0]
+    stop_count, cap = lmi.query_plan_params(index3, stop)
+    offsets, bsizes = index3.bucket_offsets, index3.bucket_sizes()
+    mt = index3.model_type
+    beam_inputs = None
+    for name, kw in D3_POINTS:
+        pl = planes[name]
+
+        def knn3(qb, kw=kw, pl=pl):
+            return filtering.knn_query(index3, qb, k=k, stop_condition=stop, metric=metric,
+                                       store=store3, planes=pl, **kw)
+
+        reset()
+        ids0, d0 = knn3(q)  # warm-up batch, checked below
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in range(1, N_BATCHES + 1):
+            knn3(queries[b * BATCH:(b + 1) * BATCH])
+        torch.cuda.synchronize()
+        t_query = time.perf_counter() - t0
+        pt = read()
+        for kname, n in pt.items():
+            phase_launches[kname] += n
+        qps = N_BATCHES * BATCH / t_query
+        check(tuple(ids0.shape) == (BATCH, k) and bool(ids0[:, 0].ge(0).all()),
+              f"{name}: kNN shape or a query with no neighbour")
+        check(bool(torch.isfinite(d0[ids0 >= 0]).all()), f"{name}: non-finite kNN distance")
+        for kname in ("beam_eval", "lmi_filter_topk_desc"):
+            check(pt[kname] > 0, f"{name}: kernel {kname} was not launched")
+
+        # the stages of one batch, replayed step by step with CUDA-event times
+        widths = lmi.normalize_beam_widths(kw["beam_width"], 3)
+        temps = lmi.normalize_temperatures(kw["temperatures"], 3)
+        check(widths[0] >= D3_ARITIES[0], "the replay assumes a dense level 1")
+
+        def dense():
+            acc = lmi._node_log_proba(mt, index3.levels[0], q, temps[0])
+            child = lmi._node_log_proba(mt, index3.levels[1], q, temps[1])
+            return (acc.T[:, :, None] + child).permute(1, 0, 2).reshape(nq, -1)
+
+        acc1 = dense()
+
+        def prune():
+            acc, sel = lmi._top(acc1, widths[1])
+            return acc, sel, be_ops.node_scores(q, sel, pl.levels[1], mt, temperature=temps[2])
+
+        accp, selp, child = prune()
+        acc2 = (accp[:, :, None] + child).reshape(nq, -1)
+        prefix2 = (selp[:, :, None] * D3_ARITIES[2]
+                   + torch.arange(D3_ARITIES[2], device=dev)[None, None, :]).reshape(nq, -1)
+
+        def final_sort():
+            _v, sel = lmi._top(acc2, acc2.shape[-1])
+            return torch.gather(prefix2, 1, sel)
+
+        order = final_sort()
+        r_order, r_logp = lmi.beam_leaf_ranking(index3, q, kw["beam_width"],
+                                                node_eval="segmented",
+                                                temperatures=kw["temperatures"], planes=pl)
+        check(bool(torch.equal(order, r_order)), f"{name}: the stage replay left the path")
+        sz, visited = lmi._visited_cut(order, bsizes, stop_count)
+        rows, valid, _nc = lmi.extract_rows(order, visited, offsets, cap)
+        runs = lmi.BucketRuns(starts=offsets[order].to(torch.int32),
+                              lengths=torch.where(visited, sz, 0).to(torch.int32))
+        ops_in = lf_ops.desc_operands(q, valid, runs)
+        stages = {
+            "dense levels": dense,
+            "prune + node_scores": prune,
+            "node_scores kernel": lambda: be_ops.node_scores(q, selp, pl.levels[1], mt,
+                                                             temperature=temps[2]),
+            "final sort": final_sort,
+            "rank + cut": lambda: lmi._visited_cut(order, bsizes, stop_count),
+            "extract": lambda: lmi.extract_rows(order, visited, offsets, cap),
+            "descriptors": lambda: lf_ops.desc_operands(q, valid, runs),
+            "filter": lambda: lf_ops.lmi_filter_topk_desc(ops_in[0], store3.data, *ops_in[1:],
+                                                          k, metric=metric),
+            "knn_query": lambda: knn3(q),
+        }
+        stage_ms = {sname: (time_ms(torch, fn, 10), device_ms(torch, fn, 10))
+                    for sname, fn in stages.items()}
+
+        # recall@30 vs exact enumeration (same temperatures) and vs brute force
+        ex_ids, _exd = filtering.knn_query(index3, q, k=k, stop_condition=stop, metric=metric,
+                                           store=store3, temperatures=kw["temperatures"])
+        bf_rows, _bfd = filtering.brute_force_knn(q, index3.sorted_embeddings, k, metric=metric)
+        bf = index3.sorted_ids[bf_rows.long()]
+        got = ids0.cpu().numpy()
+        rec_exact, rec_bf = recall(got, ex_ids.cpu().numpy(), k), recall(got, bf.cpu().numpy(), k)
+
+        # the kernel against the plain segmented and the gather paths
+        qs = q * be_ops._f32(temps[2] ** -0.5).to(dev) if mt == "kmeans" and temps[2] != 1.0 else q
+        plain_child = be_ref.node_scores_ref(qs, selp, pl.levels[1], mt)
+        lerr = float((child - plain_child).abs().max())
+        check(lerr <= LOGP_TOL, f"{name}: beam_eval log-probs differ from plain by {lerr}")
+
+        def plain_node_scores(queries_, prefix_, planes_, model_type, use_kernel=False,
+                              interpret=None, temperature=1.0):
+            qf = queries_.float()
+            if model_type == "kmeans" and temperature != 1.0:
+                qf = qf * be_ops._f32(temperature ** -0.5).to(qf.device)
+            return be_ref.node_scores_ref(qf, prefix_, planes_, model_type)
+
+        with mock.patch.object(be_ops, "node_scores", plain_node_scores):
+            p_order, p_logp = lmi.beam_leaf_ranking(index3, q, kw["beam_width"],
+                                                    node_eval="segmented",
+                                                    temperatures=kw["temperatures"], planes=pl)
+            p_ids, p_d = knn3(q)
+        g_order, g_logp = lmi.beam_leaf_ranking(index3, q, kw["beam_width"], node_eval="gather",
+                                                temperatures=kw["temperatures"])
+        g_ids, g_d = filtering.knn_query(index3, q, k=k, stop_condition=stop, metric=metric,
+                                         store=store3, beam_width=kw["beam_width"],
+                                         node_eval="gather", temperatures=kw["temperatures"])
+        cmp = {}
+        for other, (o_order, o_logp, o_ids, o_d) in (
+                ("plain", (p_order, p_logp, p_ids, p_d)), ("gather", (g_order, g_logp, g_ids, g_d))):
+            same, pos, tie = ranking_agrees(torch, index3.n_leaves, r_order, r_logp, o_order, o_logp)
+            agree = float(filtering.knn_agree(ids0.cpu(), d0.cpu(), o_ids.cpu(), o_d.cpu(),
+                                              atol=TOL["euclidean"]).mean())
+            check(same, f"{name}: the beam's leaf sets differ from the {other} path")
+            check(pos <= LOGP_TOL and tie <= LOGP_TOL,
+                  f"{name}: ranking differs from the {other} path beyond ties ({pos}, {tie})")
+            check(agree >= 0.99, f"{name}: kNN agrees with the {other} path on {agree:.4f}")
+            cmp[other] = (pos, tie, agree)
+        print(f"{name}: {qps:.0f} QPS over {N_BATCHES}x{BATCH} | launches {pt} | "
+              f"recall@{k} vs exact {rec_exact:.4f}, vs brute force {rec_bf:.4f} | "
+              f"beam_eval vs plain |dlogp| {lerr:.2e}; "
+              + "; ".join(f"vs {o}: same leaf sets, |dlogp| {a:.2e}, ties {b:.2e}, "
+                          f"kNN agreement {c:.4f}" for o, (a, b, c) in cmp.items()), flush=True)
+        host_q, dev_q = stage_ms["knn_query"]
+        print(f"{name} stages, ms per 512-query batch (back to back / device only): "
+              + " | ".join(f"{n} {h:.4f} / {v:.4f}" for n, (h, v) in stage_ms.items())
+              + f" | device idle share of knn_query {1.0 - dev_q / host_q:.3f}", flush=True)
+        check(rec_bf > 0.5, f"{name}: recall@{k} vs brute force {rec_bf} is implausibly low")
+        if beam_inputs is None:  # the P = 32,768 frontier of the beam-64 point
+            beam_inputs = (selp, pl.levels[1])
+    for kname in D3_KERNELS:
+        check(phase_launches[kname] > 0, f"kernel {kname} was not launched on the depth-3 path")
+
+    # ---- beam_eval vs its plain version per family, at the beam-64 shapes
+    selp, kplanes = beam_inputs
+    p_pairs, f_width = selp.numel(), selp.shape[1]
+    n_nodes, arity, d = kplanes.mats[0].shape
+    rng = np.random.default_rng(7)
+
+    def rand(*shape, lo=0.0, hi=1.0):
+        return torch.from_numpy(rng.uniform(lo, hi, shape).astype(np.float32)).to(dev)
+
+    fam_planes = {
+        "kmeans": kplanes,
+        "gmm": be_ops.family_planes("gmm", {
+            "means": rand(n_nodes, arity, d), "variances": rand(n_nodes, arity, d, lo=0.2),
+            "log_weights": torch.log_softmax(rand(n_nodes, arity), dim=-1)}),
+        "kmeans+logreg": be_ops.family_planes("kmeans+logreg", {
+            "w": rand(n_nodes, d, arity, lo=-1.0), "b": rand(n_nodes, arity, lo=-1.0)}),
+    }
+    records = {}
+    for fam in FAMILIES:
+        fp = fam_planes[fam]
+        got = be_ops.node_scores(q, selp, fp, fam)
+        want = be_ref.node_scores_ref(q, selp, fp, fam)
+        err = float((got - want).abs().max())
+        check(err <= LOGP_TOL, f"beam_eval {fam}: |err| {err} > {LOGP_TOL}")
+        node_s, order = be_ops.sort_pairs(selp)
+        t_host = time_ms(torch, lambda: be_ops.node_scores(q, selp, fp, fam), 20)
+        t_k = device_ms(torch, lambda: be_ops.node_scores(q, selp, fp, fam), 20)
+        t_sort = device_ms(torch, lambda: be_ops.sort_pairs(selp), 20)
+        t_launch = device_ms(torch, lambda: be_ops.launch_sorted(q, node_s, order, f_width, fp,
+                                                                  fam), 20)
+        t_p = device_ms(torch, lambda: be_ref.node_scores_ref(q, selp, fp, fam), 5)
+        st = be_ops.segment_stats(selp.cpu().numpy(), fam, arity, d, n_nodes,
+                                  prebuilt_planes=True)
+        n_mats, n_vecs = len(fp.mats), len(fp.vecs)
+        # each touched node's planes once, the queries, one int32 node id per
+        # pair, the (P, arity) output
+        n_bytes = (st["n_touched_nodes"] * (n_mats * arity * d + n_vecs * arity) * 4
+                   + q.numel() * 4 + p_pairs * 4 + p_pairs * arity * 4)
+        b = bound_ms(n_bytes, 2.0 * p_pairs * arity * d * n_mats)
+        records[fam] = dict(ms=t_k, plain_ms=t_p, bound_ms=b[0], bound_by=b[1], max_abs_err=err,
+                            kernel_ms=t_launch, sort_ms=t_sort, host_ms=t_host,
+                            n_touched_nodes=st["n_touched_nodes"],
+                            n_param_loads=st["n_param_loads"],
+                            segmented_bytes=st["segmented_bytes"], gather_bytes=st["gather_bytes"])
+        print(f"  beam_eval {fam:13s} P={p_pairs} (F={f_width}) N={n_nodes} arity={arity} d={d}: "
+              f"{t_k:.4f} ms on the device = sort {t_sort:.4f} + kernel {t_launch:.4f} "
+              f"({t_host:.4f} back to back) (plain {t_p:.3f}, bound {b[0]:.4f} by {b[1]}) "
+              f"err {err:.1e} | touched nodes {st['n_touched_nodes']}, block loads "
+              f"{st['n_param_loads']}, segmented {st['segmented_bytes'] / 1e6:.1f} MB vs "
+              f"gather {st['gather_bytes'] / 1e6:.1f} MB", flush=True)
+    return records, phase_launches
 
 
 def main() -> None:
@@ -126,9 +428,11 @@ def main() -> None:
 
     from repro_torch import kernels
     from repro_torch.core import filtering, lmi
+    from repro_torch.core import planes as planes_lib
     from repro_torch.core import store as store_lib
     from repro_torch.core.embedding import EmbeddingConfig
     from repro_torch.data.proteins import ProteinGenConfig
+    from repro_torch.kernels.beam_eval import ops as be_ops, ref as be_ref
     from repro_torch.kernels.kmeans_assign import ops as ka_ops, ref as ka_ref
     from repro_torch.kernels.lmi_filter import ops as lf_ops, ref as lf_ref
     from repro_torch.launch import build_index as build_cli, serve as serve_cli
@@ -153,7 +457,7 @@ def main() -> None:
     ecfg = EmbeddingConfig(n_sections=FULL["n_sections"], cutoff=FULL["cutoff"])
 
     # ---- 2. the main path: generate, embed, build, query
-    reset(ka_ops, lf_ops)
+    reset()
     emb, t_gen, t_emb = build_cli.generate_embeddings(
         SEED, ProteinGenConfig(n_proteins=n_obj, n_families=N_FAMILIES), ecfg, dev,
         chunk_size=gen_chunk)
@@ -189,14 +493,14 @@ def main() -> None:
     rq = filtering.range_query(index, queries[:BATCH], radius, stop_condition=FULL["stop"],
                                radius_scale=FULL["radius_scale"], store=store)
     torch.cuda.synchronize()
-    launches = read(ka_ops, lf_ops)
+    launches = read()
     qps = N_BATCHES * BATCH / t_query
     print(f"main path ({n_obj} chains, {'x'.join(map(str, arities))}, {FULL['store_dtype']} "
           f"store): generate {t_gen:.1f}s | embed {t_emb:.2f}s | build {t_build:.2f}s | "
           f"query {t_query:.3f}s for {N_BATCHES}x{BATCH} -> {qps:.0f} QPS | launches {launches}",
           flush=True)
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    for name in MAIN_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched on the main path")
 
     check(tuple(ids0.shape) == (BATCH, FULL["k"]) == tuple(d0.shape), "kNN shape")
     found = ids0 >= 0
@@ -260,20 +564,34 @@ def main() -> None:
     print("query stages, ms per 512-query batch: "
           + " | ".join(f"{n} {v:.4f}" for n, v in stage_ms.items()), flush=True)
 
-    # ---- 3. the CLIs at their defaults, on the card
+    # ---- 3. the depth-3 beam serving points
+    beam_records, d3_launches = depth3_phase(torch, np, index, queries, dev)
+    print(f"depth-3 path launches {d3_launches}", flush=True)
+
+    # ---- 4. the CLIs at their defaults, on the card
     if not quick:
         with tempfile.TemporaryDirectory() as tmp:
             out = os.path.join(tmp, "index")
-            reset(ka_ops, lf_ops)
+            reset()
             build_cli.main(["--out", out, "--device", "cuda"])
             served = serve_cli.main(["--index", out, "--n-queries", "64", "--device", "cuda"])
-            cli_launches = read(ka_ops, lf_ops)
-        print(f"CLI phase launches {cli_launches}", flush=True)
+            cli_launches = read()
+            out3 = os.path.join(tmp, "index_d3")
+            reset()
+            build_cli.main(["--out", out3, "--device", "cuda", "--arities", "16,16,16",
+                            "--beam", "8", "--node-eval", "segmented", "--prebuilt-planes"])
+            served3 = serve_cli.main(["--index", out3, "--n-queries", "64", "--device", "cuda"])
+            cli3_launches = read()
+        print(f"CLI phase launches {cli_launches}; depth-3 beam CLI launches {cli3_launches}",
+              flush=True)
         check(served.shape == (64, 30) and (served[:, 0] >= 0).all(), "serve answers")
         check(cli_launches["kmeans_assign"] > 0 and cli_launches["lmi_filter_topk_desc"] > 0,
               "the CLIs did not run the kernels")
+        check(served3.shape == (64, 30) and (served3[:, 0] >= 0).all(), "depth-3 serve answers")
+        for name in D3_KERNELS:
+            check(cli3_launches[name] > 0, f"the depth-3 beam CLIs did not launch {name}")
 
-    # ---- 4. kernels vs plain versions at the main path's shapes
+    # ---- 5. kernels vs plain versions at the main path's shapes
     covered = int(n_cands.clamp(max=cap).sum())
     touched = torch.zeros(index.n_objects, dtype=torch.bool, device=dev)
     touched[rows[valid].long()] = True
@@ -368,6 +686,14 @@ def main() -> None:
               "src/repro/kernels/kmeans_assign/kernel.py:42",
               (t_assign, t_assign_ref, b_assign, aerr, arel), launches["kmeans_assign"]),
     ]}
+    kb = beam_records["kmeans"]  # the family of the path; all three under "families"
+    out["kernels"].append({
+        "name": "beam_eval", "route": "cuda",
+        "source": "src/repro_torch/kernels/beam_eval/csrc/beam_eval.cu",
+        "replaces": "src/repro/kernels/beam_eval/kernel.py:122",
+        "launches": d3_launches["beam_eval"], "max_abs_err": kb["max_abs_err"],
+        "ms": kb["ms"], "plain_ms": kb["plain_ms"], "bound_ms": kb["bound_ms"],
+        "bound_by": kb["bound_by"], "library_ms": None, "families": beam_records})
     print(f"card: {smi}")
     print(json.dumps(out))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -55,13 +55,17 @@ def filter_topk(store, queries, rows, valid, k: int, *, metric: str = "euclidean
 
 
 def _query_impl(index, store, queries, radius, *, stop_count: int, cap: int, metric: str,
-                mode: str, k: int, bucket_topk: Optional[int] = None, temperatures=None):
+                mode: str, k: int, bucket_topk: Optional[int] = None, beam_width=None,
+                node_eval: str = "gather", temperatures=None, planes=None):
     """The whole query: search -> filter -> predicate. ``store`` shares
     the index's CSR layout, so the search's rows address it directly.
     ``radius`` is a Python float; comparing it with float32 distances
-    rounds it to float32, as JAX's ``jnp.float32(radius)`` does."""
+    rounds it to float32, as JAX's ``jnp.float32(radius)`` does.
+    ``beam_width`` / ``temperatures`` arrive normalized and ``planes``
+    validated from the entry points below."""
     cand_ids, rows, valid, _nb, _nc, runs = lmi_lib._search_core(
-        index, queries, stop_count, cap, bucket_topk, None, temperatures)
+        index, queries, stop_count, cap, bucket_topk, beam_width, node_eval, temperatures,
+        planes)
     if mode == "range":
         d = filter_range(store, queries, rows, valid, metric=metric, runs=runs)
         mask = d <= radius
@@ -92,20 +96,42 @@ def _store_for(index, store):
     return store
 
 
+def _planes_for(index, planes, temps):
+    """Staleness gate for prebuilt node planes, next to `_store_for`:
+    `core.planes.validate` rejects planes of another index revision,
+    temperature schedule or depth (ValueError)."""
+    from repro_torch.core import planes as planes_lib
+
+    return planes_lib.validate(index, planes, temps)
+
+
+def _plan_args(index, stop_condition, candidate_cap, beam_width, temperatures, node_eval,
+               planes) -> dict:
+    """The keyword arguments of `_query_impl` an entry point resolves:
+    query plan sizes, the normalized beam and temperatures, the node
+    evaluation mode and the validated planes."""
+    stop_count, cap = lmi_lib.query_plan_params(index, stop_condition, candidate_cap)
+    widths, temps = lmi_lib._static_search_args(index, beam_width, temperatures, node_eval)
+    return dict(stop_count=stop_count, cap=cap, beam_width=widths, node_eval=node_eval,
+                temperatures=temps, planes=_planes_for(index, planes, temps))
+
+
 def range_query(index, queries, radius: float, stop_condition: float = 0.01,
                 metric: str = "euclidean", radius_scale: float = 1.0,
                 use_kernel: bool = False, candidate_cap: Optional[int] = None,
                 store=None, bucket_topk: Optional[int] = None, beam_width=None,
-                temperatures=None) -> FilterResult:
+                node_eval: str = "gather", temperatures=None, planes=None) -> FilterResult:
     """End-to-end LMI range query. ``radius`` is in ground-truth units;
-    ``radius_scale`` maps it into embedding space (paper footnote 3)."""
+    ``radius_scale`` maps it into embedding space (paper footnote 3).
+    ``beam_width`` (scalar or per-level schedule; None == exact),
+    ``node_eval`` ("gather" / "segmented"), ``temperatures`` and prebuilt
+    ``planes`` shape the leaf ranking as in `lmi.search`."""
     q = torch.as_tensor(queries, dtype=torch.float32, device=index.device)
-    stop_count, cap = lmi_lib.query_plan_params(index, stop_condition, candidate_cap)
-    _w, temps = lmi_lib._static_search_args(index, beam_width, temperatures)
     ids, d, mask = _query_impl(
-        index, _store_for(index, store), q, radius * radius_scale,
-        stop_count=stop_count, cap=cap, metric=metric, mode="range", k=0,
-        bucket_topk=bucket_topk, temperatures=temps)
+        index, _store_for(index, store), q, radius * radius_scale, metric=metric,
+        mode="range", k=0, bucket_topk=bucket_topk,
+        **_plan_args(index, stop_condition, candidate_cap, beam_width, temperatures,
+                     node_eval, planes))
     return FilterResult(ids=ids, distances=d, mask=mask)
 
 
@@ -113,17 +139,18 @@ def knn_query(index, queries, k: int, stop_condition: float = 0.01,
               metric: str = "euclidean", max_radius: Optional[float] = None,
               radius_scale: float = 1.0, use_kernel: bool = False,
               candidate_cap: Optional[int] = None, store=None,
-              bucket_topk: Optional[int] = None, beam_width=None, temperatures=None):
+              bucket_topk: Optional[int] = None, beam_width=None, node_eval: str = "gather",
+              temperatures=None, planes=None):
     """kNN over the candidate set (paper Table 3: 30NN with max radius).
     -> (ids (Q, k), distances (Q, k)); slots beyond the candidates found
-    hold id -1 / distance +inf."""
+    hold id -1 / distance +inf. The beam arguments are `range_query`'s."""
     q = torch.as_tensor(queries, dtype=torch.float32, device=index.device)
-    stop_count, cap = lmi_lib.query_plan_params(index, stop_condition, candidate_cap)
-    _w, temps = lmi_lib._static_search_args(index, beam_width, temperatures)
     radius = _BIG if max_radius is None else max_radius * radius_scale
     ids, d, _found = _query_impl(
-        index, _store_for(index, store), q, radius, stop_count=stop_count, cap=cap,
-        metric=metric, mode="knn", k=int(k), bucket_topk=bucket_topk, temperatures=temps)
+        index, _store_for(index, store), q, radius, metric=metric, mode="knn", k=int(k),
+        bucket_topk=bucket_topk,
+        **_plan_args(index, stop_condition, candidate_cap, beam_width, temperatures,
+                     node_eval, planes))
     return ids, d
 
 

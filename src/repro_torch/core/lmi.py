@@ -6,11 +6,14 @@ stack of ``prod(arities[:i])`` node models of arity ``a_i``, each fit on
 the points routed to its parent. Leaf ids are mixed-radix prefixes. The
 paper's best setup is the 2-level (256, 64) K-Means stack.
 
-Search (exact enumeration; the beam is a later slice): the joint leaf
-log-probability factorises over the levels, so one batched evaluation
-per level gives the dense (Q, n_leaves) panel (`leaf_log_probs`). Leaves
-are ranked best-first and the ranked bucket stream is cut at the stop
-condition (`rank_visited_buckets`); `extract_rows` turns the visited
+Search: the joint leaf log-probability factorises over the levels, so
+one batched evaluation per level gives the dense (Q, n_leaves) panel
+(`leaf_log_probs`, exact enumeration); or a beam keeps only the best
+prefixes before each expansion and scores only their children
+(`beam_leaf_ranking`, per-pair gather or the segmented beam_eval
+kernel). Leaves are ranked best-first and the ranked bucket stream is
+cut at the stop condition (`rank_visited_buckets` /
+`beam_rank_visited_buckets`); `extract_rows` turns the visited
 buckets into a fixed-shape (Q, cap) CSR-row matrix plus validity, and
 `BucketRuns` describes the same candidates as contiguous runs — what the
 CUDA filter kernel gathers by.
@@ -35,11 +38,10 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import gmm, kmeans, logreg
+from repro_torch.kernels.beam_eval import ops as be_ops
 
 MODEL_TYPES = ("kmeans", "gmm", "kmeans+logreg")
-
-_BEAM_TODO = ("beam search is not ported yet (ROADMAP queue A: beam routing + "
-              "beam_eval); use beam_width=None for exact enumeration")
+NODE_EVAL_MODES = ("gather", "segmented")
 
 
 def normalize_beam_widths(beam_width, depth: int):
@@ -281,6 +283,77 @@ def leaf_log_probs(index, queries: torch.Tensor, temperatures=None) -> torch.Ten
     return acc
 
 
+def _top(x: torch.Tensor, k: int):
+    """``jax.lax.top_k`` along the last axis: (values, indices) of the k
+    largest, equal values in index order (a stable sort of ``-x``)."""
+    sel = torch.sort(-x, dim=-1, stable=True).indices[..., :k]
+    return torch.gather(x, -1, sel), sel
+
+
+def beam_leaf_ranking(index, queries: torch.Tensor, beam_width, node_eval: str = "gather",
+                      use_kernel: bool = False, interpret=None, temperatures=None,
+                      planes=None):
+    """Best-first (order (Q, R), logp (Q, R)) of the beam's surviving leaves.
+
+    Before each expansion a level keeps only the top-``width`` prefixes
+    per query and evaluates only their node models. ``beam_width`` is a
+    scalar or a schedule of ``depth - 1`` widths (``widths[i-1]`` prunes
+    before level ``i``); ``R = min(beam, N_last) * arities[-1]``.
+
+    While the frontier still fits the beam nothing is pruned and the
+    expansion stays the dense batched evaluation of `leaf_log_probs`, so
+    a beam of at least ``prod(arities[:-1])`` gives the exact panel.
+
+    ``node_eval`` picks how a pruned level reads its node models:
+    ``"gather"`` gathers each pair's parameters and runs the family's
+    `predict_log_proba` (plain torch, as JAX leaves it to XLA);
+    ``"segmented"`` runs `beam_eval.ops.node_scores`, the hand-written
+    kernel on CUDA tensors. ``planes``: prebuilt `core.planes.IndexPlanes`
+    for the segmented mode, validated by the entry points (this body
+    trusts the caller). ``use_kernel`` / ``interpret`` are kept for the
+    JAX signature and change nothing.
+    """
+    del use_kernel, interpret
+    if node_eval not in NODE_EVAL_MODES:
+        raise ValueError(f"node_eval must be one of {NODE_EVAL_MODES}, got {node_eval!r}")
+    widths = normalize_beam_widths(beam_width, index.depth)
+    if widths is None:
+        raise ValueError("beam_leaf_ranking needs a beam width; use "
+                         "leaf_log_probs for exact enumeration")
+    temps = normalize_temperatures(temperatures, index.depth)
+    q = queries.float()
+    nq = q.shape[0]
+    acc = _node_log_proba(index.model_type, index.levels[0], q, temps[0])  # (Q, a0)
+    prefix = None  # None == full enumeration so far (acc column j is prefix j)
+    for i, params in enumerate(index.levels[1:], start=1):
+        arity, width, temp = index.arities[i], widths[i - 1], temps[i]
+        if prefix is None and acc.shape[-1] <= width:
+            # dense expansion, identical to the leaf_log_probs level step
+            child = _node_log_proba(index.model_type, params, q, temp)  # (N, Q, a)
+            acc = (acc.T[:, :, None] + child).permute(1, 0, 2).reshape(nq, -1)
+            continue
+        if prefix is None:
+            prefix = torch.arange(acc.shape[-1], device=q.device).expand(nq, -1)
+        if acc.shape[-1] > width:
+            acc, sel = _top(acc, width)
+            prefix = torch.gather(prefix, 1, sel)
+        if node_eval == "segmented":
+            level_planes = (planes.levels[i - 1] if planes is not None
+                            else be_ops.family_planes(index.model_type, params, temperature=temp))
+            child = be_ops.node_scores(q, prefix, level_planes, index.model_type,
+                                       temperature=temp)  # (Q, F, arity)
+        else:
+            own = {k: v[prefix] for k, v in params.items()}  # (Q, F, ...) gathered
+            child = _node_log_proba(index.model_type, own, q[:, None, None, :], temp)[..., 0, :]
+        acc = (acc[:, :, None] + child).reshape(nq, -1)
+        prefix = (prefix[:, :, None] * arity
+                  + torch.arange(arity, device=q.device)[None, None, :]).reshape(nq, -1)
+    if prefix is None:
+        prefix = torch.arange(acc.shape[-1], device=q.device).expand(nq, -1)
+    acc, sel = _top(acc, acc.shape[-1])  # best-first order of the frontier
+    return torch.gather(prefix, 1, sel), acc
+
+
 class SearchResult:
     """Fixed-shape candidate sets for a batch of queries."""
 
@@ -345,6 +418,20 @@ def rank_visited_buckets(logp: torch.Tensor, sizes: torch.Tensor, stop_count: in
     return order, visited, sz
 
 
+def beam_rank_visited_buckets(index, queries: torch.Tensor, sizes: torch.Tensor,
+                              stop_count: int, beam_width, bucket_topk: Optional[int] = None,
+                              node_eval: str = "gather", temperatures=None, planes=None):
+    """`rank_visited_buckets` for the beam: rank only the beam's surviving
+    leaves (`beam_leaf_ranking`, already best-first), keep the first
+    ``bucket_topk`` and cut at the stop condition."""
+    order, _logp = beam_leaf_ranking(index, queries, beam_width, node_eval=node_eval,
+                                     temperatures=temperatures, planes=planes)
+    if bucket_topk is not None and bucket_topk < order.shape[-1]:
+        order = order[:, :bucket_topk]
+    sz, visited = _visited_cut(order, sizes, stop_count)
+    return order, visited, sz
+
+
 def extract_rows(order: torch.Tensor, visited: torch.Tensor, offsets: torch.Tensor,
                  cap: int):
     """Map candidate slots to CSR rows: (rows (Q, cap) int32, valid
@@ -374,14 +461,22 @@ def extract_rows(order: torch.Tensor, visited: torch.Tensor, offsets: torch.Tens
 
 
 def _search_core(index: LMI, queries: torch.Tensor, stop_count: int, cap: int,
-                 bucket_topk: Optional[int] = None, beam_width=None, temperatures=None):
+                 bucket_topk: Optional[int] = None, beam_width=None, node_eval: str = "gather",
+                 temperatures=None, planes=None):
     """Search body shared by every query entry point:
-    -> (cand_ids, rows, valid, n_buckets, n_cands, runs)."""
-    if beam_width is not None:
-        raise NotImplementedError(_BEAM_TODO)
-    logp = leaf_log_probs(index, queries, temperatures)  # (Q, L)
-    order, visited, sz = rank_visited_buckets(logp, index.bucket_sizes(), stop_count,
-                                              bucket_topk)
+    -> (cand_ids, rows, valid, n_buckets, n_cands, runs).
+
+    ``beam_width=None`` enumerates every leaf; a width or schedule prunes
+    the level frontier (`beam_leaf_ranking`, with ``node_eval`` and the
+    validated prebuilt ``planes``)."""
+    if beam_width is None:
+        logp = leaf_log_probs(index, queries, temperatures)  # (Q, L)
+        order, visited, sz = rank_visited_buckets(logp, index.bucket_sizes(), stop_count,
+                                                  bucket_topk)
+    else:
+        order, visited, sz = beam_rank_visited_buckets(
+            index, queries, index.bucket_sizes(), stop_count, beam_width, bucket_topk,
+            node_eval=node_eval, temperatures=temperatures, planes=planes)
     n_buckets = torch.sum(visited, dim=-1).to(torch.int32)
     rows, valid, n_cands = extract_rows(order, visited, index.bucket_offsets, cap)
     runs = BucketRuns(
@@ -392,32 +487,50 @@ def _search_core(index: LMI, queries: torch.Tensor, stop_count: int, cap: int,
     return cand_ids, rows, valid, n_buckets, n_cands, runs
 
 
-def _static_search_args(index, beam_width, temperatures):
-    widths = normalize_beam_widths(beam_width, index.depth)
-    if widths is not None:
-        raise NotImplementedError(_BEAM_TODO)
-    return widths, normalize_temperatures(temperatures, index.depth)
+def _static_search_args(index, beam_width, temperatures, node_eval: str = "gather"):
+    """(schedule, temps) in canonical form: `search(beam_width=B)` and
+    `search(beam_width=(B,) * k)` run the same plan. Raises on an unknown
+    ``node_eval``, whatever the beam."""
+    if node_eval not in NODE_EVAL_MODES:
+        raise ValueError(f"node_eval must be one of {NODE_EVAL_MODES}, got {node_eval!r}")
+    return (normalize_beam_widths(beam_width, index.depth),
+            normalize_temperatures(temperatures, index.depth))
 
 
 def search(index: LMI, queries: torch.Tensor, stop_condition: float = 0.01,
            candidate_cap: Optional[int] = None, bucket_topk: Optional[int] = None,
-           beam_width=None, temperatures=None) -> SearchResult:
+           beam_width=None, node_eval: str = "gather", use_kernel: bool = False,
+           interpret=None, temperatures=None, planes=None) -> SearchResult:
     """Batched LMI search: buckets are consumed in joint-probability order
     until the candidate count reaches ``stop_condition * M`` (the paper's
-    dataset fraction; the last bucket may overshoot, hence the cap)."""
+    dataset fraction; the last bucket may overshoot, hence the cap).
+    ``beam_width`` prunes the level traversal (`beam_leaf_ranking`, with
+    ``node_eval``); ``temperatures`` calibrate each level; ``planes`` are
+    prebuilt node planes for the segmented beam, validated against the
+    index revision and the temperatures. ``use_kernel`` / ``interpret``
+    are kept for the JAX signature: on CUDA the kernels always run."""
+    from repro_torch.core import planes as planes_lib
+
+    del use_kernel, interpret
     stop_count, cap = query_plan_params(index, stop_condition, candidate_cap)
-    _widths, temps = _static_search_args(index, beam_width, temperatures)
+    widths, temps = _static_search_args(index, beam_width, temperatures, node_eval)
+    planes = planes_lib.validate(index, planes, temps)
     cand_ids, _rows, valid, n_buckets, n_cands, runs = _search_core(
-        index, queries.float(), stop_count, cap, bucket_topk, None, temps)
+        index, queries.float(), stop_count, cap, bucket_topk, widths, node_eval, temps, planes)
     return SearchResult(cand_ids, valid, n_buckets, n_cands, runs)
 
 
 def search_rows(index: LMI, queries: torch.Tensor, stop_condition: float = 0.01,
                 candidate_cap: Optional[int] = None, bucket_topk: Optional[int] = None,
-                beam_width=None, temperatures=None):
+                beam_width=None, node_eval: str = "gather", use_kernel: bool = False,
+                interpret=None, temperatures=None, planes=None):
     """Like `search` but -> (cand_ids, rows, valid) with CSR row indices."""
+    from repro_torch.core import planes as planes_lib
+
+    del use_kernel, interpret
     stop_count, cap = query_plan_params(index, stop_condition, candidate_cap)
-    _widths, temps = _static_search_args(index, beam_width, temperatures)
+    widths, temps = _static_search_args(index, beam_width, temperatures, node_eval)
+    planes = planes_lib.validate(index, planes, temps)
     cand_ids, rows, valid, _nb, _nc, _runs = _search_core(
-        index, queries.float(), stop_count, cap, bucket_topk, None, temps)
+        index, queries.float(), stop_count, cap, bucket_topk, widths, node_eval, temps, planes)
     return cand_ids, rows, valid

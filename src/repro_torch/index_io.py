@@ -26,7 +26,9 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import planes as planes_lib
 from repro_torch.core.lmi import LMI, MODEL_TYPES
+from repro_torch.kernels.beam_eval.ops import _FAMILY_SHAPES, Planes
 
 
 def _key(*path) -> str:
@@ -61,19 +63,16 @@ def index_from_numpy(levels, bucket_offsets, sorted_ids, sorted_embeddings, *,
     )
 
 
-def save_index(directory: str, index: LMI, *, n_sections: int, cutoff: float, seed: int = 0,
-               store_dtype: str = "float32", beam_width=None, node_eval: str = "gather",
-               **extra_meta) -> None:
-    """Persist a built LMI as format 2 (atomic npz + meta.json)."""
+def _planes_key(level: int, kind: str, m: int) -> str:
+    """``keystr`` of a leaf of ``{"levels": (Planes, ...)}``, e.g.
+    ``['levels'][0].mats[1]`` (Planes is a named tuple: attribute keys)."""
+    return f"['levels'][{level}].{kind}[{m}]"
+
+
+def _write_npz(directory: str, leaves: dict, treedef: str) -> None:
+    """``<directory>/step_0.npz`` written atomically (tmp, fsync, rename),
+    as the JAX package's checkpoint ``save`` does."""
     os.makedirs(directory, exist_ok=True)
-    leaves = {}
-    for i, lv in enumerate(index.levels):
-        for name, v in lv.items():
-            leaves[_key("levels", i, name)] = v.detach().cpu().numpy()
-    leaves[_key("bucket_offsets")] = index.bucket_offsets.cpu().numpy()
-    leaves[_key("sorted_ids")] = index.sorted_ids.cpu().numpy()
-    leaves[_key("sorted_embeddings")] = index.sorted_embeddings.cpu().numpy()
-    treedef = "{'bucket_offsets', 'levels', 'sorted_embeddings', 'sorted_ids'}"
     fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp")
     try:
         with os.fdopen(fd, "wb") as f:
@@ -84,6 +83,27 @@ def save_index(directory: str, index: LMI, *, n_sections: int, cutoff: float, se
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
+
+
+def save_index(directory: str, index: LMI, *, n_sections: int, cutoff: float, seed: int = 0,
+               store_dtype: str = "float32", beam_width=None, beam_widths=None,
+               temperatures=None, node_eval: str = "gather", prebuilt_planes: bool = False,
+               **extra_meta) -> None:
+    """Persist a built LMI as format 2 (atomic npz + meta.json).
+
+    The optional meta keys are written only when set, as the JAX package
+    does: ``beam_widths`` (a per-level schedule), ``temperatures``, and
+    with ``prebuilt_planes=True`` the canonical node planes of
+    `core.planes.from_lmi` under ``<dir>/planes/step_0.npz`` plus a
+    ``prebuilt_planes`` key with their revision and temperatures."""
+    leaves = {}
+    for i, lv in enumerate(index.levels):
+        for name, v in lv.items():
+            leaves[_key("levels", i, name)] = v.detach().cpu().numpy()
+    leaves[_key("bucket_offsets")] = index.bucket_offsets.cpu().numpy()
+    leaves[_key("sorted_ids")] = index.sorted_ids.cpu().numpy()
+    leaves[_key("sorted_embeddings")] = index.sorted_embeddings.cpu().numpy()
+    _write_npz(directory, leaves, "{'bucket_offsets', 'levels', 'sorted_embeddings', 'sorted_ids'}")
     meta = dict(
         format=2,
         arities=list(index.arities), depth=index.depth,
@@ -95,6 +115,21 @@ def save_index(directory: str, index: LMI, *, n_sections: int, cutoff: float, se
         node_eval=node_eval, seed=seed,
         **extra_meta,
     )
+    if beam_widths is not None:
+        meta["beam_widths"] = [int(b) for b in beam_widths]
+    if temperatures is not None:
+        meta["temperatures"] = [float(t) for t in temperatures]
+    if prebuilt_planes:
+        planes = planes_lib.from_lmi(index, temperatures)
+        leaves = {}
+        for i, pl in enumerate(planes.levels):
+            for kind in ("mats", "vecs"):
+                for m, t in enumerate(getattr(pl, kind)):
+                    leaves[_planes_key(i, kind, m)] = t.detach().cpu().numpy()
+        _write_npz(os.path.join(directory, "planes"), leaves,
+                   "{'levels': (" + ", ".join("Planes" for _ in planes.levels) + ")}")
+        meta["prebuilt_planes"] = dict(revision=planes.revision,
+                                       temperatures=[float(t) for t in planes.temperatures])
     with open(os.path.join(directory, "meta.json"), "w") as f:
         json.dump(meta, f, indent=1)
 
@@ -168,3 +203,36 @@ def load_index(directory: str, device=None) -> LMI:
         arities=arities, model_type=model_type,
         max_bucket_size=int(meta.get("max_bucket_size") or 0), device=dev,
     )
+
+
+def load_planes(directory: str, index: LMI):
+    """The prebuilt node planes saved beside an index, on the index's
+    device, or None when the meta has no ``prebuilt_planes`` key (built
+    without them: the segmented beam then canonicalizes per batch). The
+    revision and temperatures recorded in the meta come back with them, so
+    `core.planes.validate` can reject them for a changed index or another
+    serving schedule."""
+    info = load_meta(directory).get("prebuilt_planes")
+    if not info:
+        return None
+    n_mats, n_vecs, _raw = _FAMILY_SHAPES[index.model_type]
+    path = os.path.join(directory, "planes", "step_0.npz")
+    levels = []
+    with np.load(path, allow_pickle=False) as z:
+        for i in range(1, index.depth):
+            lead = (math.prod(index.arities[:i]), index.arities[i])
+            tensors = {}
+            for kind, n, shape in (("mats", n_mats, (*lead, index.dim)), ("vecs", n_vecs, lead)):
+                for m in range(n):
+                    key = _planes_key(i - 1, kind, m)
+                    if key not in z.files:
+                        raise KeyError(f"planes checkpoint {path} is missing leaf {key}")
+                    a = z[key]
+                    if tuple(a.shape) != shape:
+                        raise ValueError(f"planes leaf {key}: {a.shape} vs expected {shape}")
+                    tensors.setdefault(kind, []).append(
+                        torch.tensor(np.asarray(a, np.float32), device=index.device))
+            levels.append(Planes(mats=tuple(tensors["mats"]), vecs=tuple(tensors["vecs"])))
+    return planes_lib.IndexPlanes(
+        temperatures=tuple(float(t) for t in info["temperatures"]),
+        levels=tuple(levels), revision=int(info["revision"]))

@@ -33,6 +33,7 @@ BUILD_DIR = _PKG.parent / "_build"
 SOURCES = {
     "lmi_filter": _PKG / "lmi_filter" / "csrc" / "lmi_filter.cu",
     "kmeans_assign": _PKG / "kmeans_assign" / "csrc" / "kmeans_assign.cu",
+    "beam_eval": _PKG / "beam_eval" / "csrc" / "beam_eval.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

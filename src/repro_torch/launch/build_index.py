@@ -9,6 +9,9 @@ device, builds the K-Means level stack and saves it in the JAX package's
 format 2 (docs/index_format.md), which JAX's ``load_index`` reads too.
 Flags are the JAX launcher's, over what this slice supports, plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain versions).
+``--beam`` / ``--node-eval`` record the serving defaults in meta.json;
+``--prebuilt-planes`` saves the canonical node planes of the segmented
+beam beside the index.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ from repro_torch.core import lmi
 from repro_torch.core import store as store_lib
 from repro_torch.core.embedding import EmbeddingConfig, embed_dataset
 from repro_torch.data.proteins import ProteinGenConfig, iter_dataset
-from repro_torch.index_io import save_index
+from repro_torch.index_io import load_planes, save_index
 
 
 def parse_arities(args) -> tuple[int, ...]:
@@ -30,6 +33,29 @@ def parse_arities(args) -> tuple[int, ...]:
     if getattr(args, "arities", None):
         return tuple(int(a) for a in str(args.arities).split(","))
     return tuple(int(a) for a in args.arity)
+
+
+def parse_beam(value):
+    """--beam forms (build_index and serve share this parser): None
+    (unset), "0" (force exact), "128" (scalar width), or a comma schedule
+    "64,16" (one width per pruned level). -> None | int | tuple."""
+    if value is None:
+        return None
+    vals = [int(p) for p in str(value).split(",") if p.strip() != ""]
+    if not vals:
+        return None
+    if len(vals) == 1:
+        return None if vals[0] <= 0 else vals[0]
+    return tuple(vals)
+
+
+def parse_temperatures(value):
+    """--temperatures comma floats ("1.0,0.7,0.5", one per level) -> tuple,
+    or None when unset."""
+    if value is None:
+        return None
+    vals = [float(p) for p in str(value).split(",") if p.strip() != ""]
+    return tuple(vals) or None
 
 
 def generate_embeddings(seed: int, gen_cfg: ProteinGenConfig, emb_cfg: EmbeddingConfig,
@@ -68,6 +94,20 @@ def main(argv=None):
     ap.add_argument("--store-dtype", type=str, default="float32",
                     help="serving-time candidate-store precision recorded in meta.json "
                          "(float32 or bfloat16 in the port so far)")
+    ap.add_argument("--beam", type=str, default=None,
+                    help="default serving beam recorded in meta.json: a scalar width, "
+                         "a comma schedule '64,16' (one width per pruned level), or 0 "
+                         "for exact leaf enumeration (None = exact)")
+    ap.add_argument("--node-eval", choices=lmi.NODE_EVAL_MODES, default="gather",
+                    help="default beam node-evaluation mode recorded in meta.json "
+                         "('segmented' runs the beam_eval kernel on CUDA)")
+    ap.add_argument("--prebuilt-planes", action="store_true",
+                    help="materialize the canonical node planes of the segmented beam "
+                         "once and save them next to the index (keyed on index "
+                         "revision + temperature schedule)")
+    ap.add_argument("--calibrate", action="store_true",
+                    help="fit per-level temperatures + a beam width schedule (not "
+                         "ported yet: raises)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", type=str, required=True)
     ap.add_argument("--device", type=str, default="cuda",
@@ -79,6 +119,12 @@ def main(argv=None):
     store_lib.validate_dtype(args.store_dtype, flag="--store-dtype")
     store_lib.require_supported(args.store_dtype)
     lmi._require_kmeans(args.model)
+    if args.calibrate:
+        raise NotImplementedError(
+            "--calibrate is not ported yet (ROADMAP 'Next': gmm / logreg fits and "
+            "calibration); record a schedule with --beam instead")
+    beam = parse_beam(args.beam)
+    lmi.normalize_beam_widths(beam, len(arities))  # a bad schedule fails before the build
     device = resolve_device(args.device)
 
     ecfg = EmbeddingConfig(n_sections=args.sections, cutoff=args.cutoff)
@@ -106,7 +152,15 @@ def main(argv=None):
               f"{st.nbytes(include_metadata=False) / 2**20:.1f} MB")
 
     save_index(args.out, index, n_sections=args.sections, cutoff=args.cutoff, seed=args.seed,
-               store_dtype=args.store_dtype, build_seconds=t_build, embed_seconds=t_embed)
+               store_dtype=args.store_dtype,
+               beam_width=beam if isinstance(beam, int) else None,
+               beam_widths=beam if isinstance(beam, tuple) else None,
+               node_eval=args.node_eval, prebuilt_planes=args.prebuilt_planes,
+               build_seconds=t_build, embed_seconds=t_embed)
+    if args.prebuilt_planes:
+        planes = load_planes(args.out, index)
+        print(f"prebuilt planes: {planes.nbytes() / 2**20:.1f} MB "
+              f"(revision {planes.revision}, {len(planes.levels)} pruned levels)")
     print(f"saved to {args.out}")
     return index
 

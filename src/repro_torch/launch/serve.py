@@ -12,6 +12,14 @@ batches padded with repeats of row 0 and their padding outputs dropped.
 A warmup batch runs first, so the reported QPS and per-query p50 / p99
 (each query's share of its batch's service time) are steady-state.
 The continuous-batching harness is a later slice (ROADMAP queue A).
+
+The beam, temperatures and node evaluation default to the build's
+meta.json keys as in the JAX launcher (a ``beam_widths`` schedule over
+the scalar ``beam_width``; missing keys mean exact enumeration,
+temperature 1.0, per-pair gather); ``--beam`` / ``--temperatures`` /
+``--node-eval`` override them. Indexes built with ``--prebuilt-planes``
+serve the segmented beam from the saved planes, refolded at startup when
+the serving temperatures differ from theirs.
 """
 from __future__ import annotations
 
@@ -22,9 +30,11 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core import filtering
+from repro_torch.core import filtering, lmi
+from repro_torch.core import planes as planes_lib
 from repro_torch.core import store as store_lib
-from repro_torch.index_io import load_index, load_meta, serving_defaults
+from repro_torch.index_io import load_index, load_meta, load_planes, serving_defaults
+from repro_torch.launch.build_index import parse_beam, parse_temperatures
 
 
 def main(argv=None):
@@ -39,6 +49,21 @@ def main(argv=None):
     ap.add_argument("--store-dtype", type=str, default=None,
                     help="candidate-store precision, float32 or bfloat16 (default: the "
                          "build's meta.json store_dtype, else float32)")
+    ap.add_argument("--beam", type=str, default=None,
+                    help="beam for the leaf ranking: a scalar width or a comma schedule "
+                         "'64,16' (one width per pruned level; default: the build's "
+                         "meta.json beam_widths / beam_width; 0 forces exact)")
+    ap.add_argument("--temperatures", type=str, default=None,
+                    help="comma per-level temperatures '1.0,0.7,0.5' (default: the "
+                         "build's meta.json temperatures, else 1.0 everywhere)")
+    ap.add_argument("--node-eval", choices=lmi.NODE_EVAL_MODES, default=None,
+                    help="how the beam's pruned levels read node models: 'gather' or "
+                         "'segmented' (the beam_eval kernel on CUDA; default: the "
+                         "build's meta.json node_eval)")
+    ap.add_argument("--use-kernel", action="store_true",
+                    help="accepted for parity with the JAX launcher and has no effect: "
+                         "on CUDA the port's kernels always run, on the CPU their plain "
+                         "versions")
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--device", type=str, default="cuda",
                     help="device to serve on (default cuda; cpu runs the plain versions)")
@@ -49,10 +74,27 @@ def main(argv=None):
     defaults = serving_defaults(load_meta(args.index))
     store_dtype = store_lib.validate_dtype(args.store_dtype or defaults["store_dtype"],
                                            flag="--store-dtype")
+    beam = defaults["beam"] if args.beam is None else parse_beam(args.beam)
+    temperatures = (defaults["temperatures"] if args.temperatures is None
+                    else parse_temperatures(args.temperatures))
+    node_eval = args.node_eval or defaults["node_eval"]
+    planes = load_planes(args.index, index)
+    if planes is not None:
+        temps = lmi.normalize_temperatures(temperatures, index.depth)
+        if planes.temperatures != temps:
+            print(f"prebuilt planes folded with temperatures {planes.temperatures} != "
+                  f"serving {temps}; refolding")
+            planes = planes_lib.from_lmi(index, temperatures)
     store = store_lib.from_lmi(index, store_dtype)
+    beam_str = ("exact" if beam is None
+                else ",".join(map(str, beam)) if isinstance(beam, tuple) else beam)
+    temp_str = "1.0" if temperatures is None else ",".join(f"{t:g}" for t in temperatures)
     print(f"index: {index.n_objects} objects, {index.n_leaves} buckets "
           f"(depth {index.depth}, arities {'x'.join(map(str, index.arities))}), "
-          f"dim {index.dim}, store dtype {store_dtype}, beam exact, on {device}")
+          f"dim {index.dim}, store dtype {store_dtype}, beam {beam_str}, "
+          f"temperatures {temp_str}, node eval {node_eval}"
+          + (f", prebuilt planes {planes.nbytes() / 2**20:.1f} MB" if planes is not None
+             else "") + f", on {device}")
     print(f"candidate store: {store.nbytes() / 2**20:.1f} MB")
 
     # queries: perturbed database objects (realistic near-duplicate load)
@@ -63,7 +105,9 @@ def main(argv=None):
 
     def fn(q):
         return filtering.knn_query(index, q, k=args.k, stop_condition=args.stop,
-                                   metric=args.metric, max_radius=args.radius, store=store)
+                                   metric=args.metric, max_radius=args.radius, store=store,
+                                   beam_width=beam, node_eval=node_eval,
+                                   temperatures=temperatures, planes=planes)
 
     def sync():
         if device.type == "cuda":

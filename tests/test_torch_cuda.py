@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import filtering, lmi, store as store_lib
+from repro_torch.core import filtering, lmi, planes as planes_lib, store as store_lib
+from repro_torch.kernels.beam_eval import ops as be_ops, ref as be_ref
 from repro_torch.kernels.kmeans_assign import ops as ka_ops, ref as ka_ref
 from repro_torch.kernels.lmi_filter import ops as lf_ops, ref as lf_ref
 
@@ -128,4 +129,82 @@ def test_build_and_query_on_card_match_cpu(dev):
     cpu = index.to("cpu")
     cids, cd = filtering.knn_query(cpu, q, k=10, stop_condition=0.05,
                                    store=store_lib.from_lmi(cpu, "bfloat16"))
+    assert filtering.knn_agree(ids.cpu(), d.cpu(), cids, cd, atol=2e-3).mean() >= 0.95
+
+
+def _random_planes(rng, family, n, a, d, dev, temperature=1.0):
+    if family == "kmeans":
+        params = {"centroids": rng.uniform(0, 1, (n, a, d))}
+    elif family == "gmm":
+        params = {"means": rng.uniform(0, 1, (n, a, d)),
+                  "variances": rng.uniform(0.2, 1.0, (n, a, d)),
+                  "log_weights": np.log(rng.dirichlet(np.ones(a), n))}
+    else:
+        params = {"w": rng.normal(size=(n, d, a)), "b": rng.normal(size=(n, a))}
+    params = {k: torch.from_numpy(v.astype(np.float32)).to(dev) for k, v in params.items()}
+    return be_ops.family_planes(family, params, temperature=temperature)
+
+
+# (n nodes, arity, d, queries, frontier): ragged P with long shared runs;
+# the depth-3 serving shape; arity 256 at d 190, where gmm's two blocks
+# do not fit in shared memory and are taken in chunks
+BEAM_SHAPES = [(23, 5, 13, 6, 9), (4096, 64, 45, 512, 64), (40, 256, 190, 16, 12)]
+
+
+@pytest.mark.parametrize("shape", BEAM_SHAPES)
+@pytest.mark.parametrize("family", ["kmeans", "gmm", "kmeans+logreg"])
+def test_beam_eval_kernel_matches_plain(dev, family, shape):
+    n, a, d, nq, f = shape
+    rng = np.random.default_rng(n + a)
+    for temperature in (1.0, 0.7):
+        planes = _random_planes(rng, family, n, a, d, dev, temperature)
+        q = torch.from_numpy(rng.uniform(0, 1, (nq, d)).astype(np.float32)).to(dev)
+        prefix = torch.from_numpy(rng.integers(0, n, (nq, f))).to(dev)
+        prefix[:, : f // 2] = prefix[0, 0]  # a long shared run
+        got = be_ops.node_scores(q, prefix, planes, family, temperature=temperature)
+        torch.cuda.synchronize()
+        qs = q * (temperature ** -0.5) if family == "kmeans" and temperature != 1.0 else q
+        want = be_ref.node_scores_ref(qs, prefix, planes, family)
+        assert got.shape == (nq, f, a)
+        # float32 sums over d in another order, and |q|^2 + |c|^2 - 2 q.c
+        # cancels with |q|^2 ~ d / 3: the rounding grows with d
+        atol = 1e-4 if d <= 64 else 5e-4
+        torch.testing.assert_close(got, want, rtol=0, atol=atol)
+
+
+def test_beam_eval_counts_launches_and_checks_operands(dev):
+    rng = np.random.default_rng(0)
+    planes = _random_planes(rng, "kmeans", 8, 4, 6, dev)
+    q = torch.rand((3, 6), device=dev)
+    prefix = torch.randint(0, 8, (3, 2), device=dev)
+    before = be_ops.LAUNCHES["beam_eval"]
+    be_ops.node_scores(q, prefix, planes, "kmeans")
+    assert be_ops.LAUNCHES["beam_eval"] == before + 1
+    with pytest.raises(ValueError, match="arity"):
+        big = be_ops.Planes(mats=(torch.zeros((2, be_ops.MAX_ARITY + 1, 6), device=dev),),
+                            vecs=(torch.zeros((2, be_ops.MAX_ARITY + 1), device=dev),))
+        be_ops.node_scores(q, prefix, big, "kmeans")
+    with pytest.raises(ValueError, match="matrices"):
+        be_ops.node_scores(q, prefix, planes, "gmm")
+    with pytest.raises(ValueError):
+        be_ops.node_scores(q, prefix.cpu(), planes, "kmeans")
+
+
+def test_segmented_beam_on_card_matches_cpu(dev):
+    """A depth-3 index built on the card answers a segmented beam with
+    prebuilt planes like the same index on the CPU, modulo ties."""
+    rng = np.random.default_rng(2)
+    centers = rng.uniform(0, 1, (16, 45))
+    x = centers[rng.integers(0, 16, 4000)] + rng.normal(scale=0.05, size=(4000, 45))
+    x = torch.from_numpy(x.astype(np.float32))
+    index = lmi.build(0, x.to(dev), arities=(8, 8, 8), device=dev)
+    q = x[:64] + 0.01
+    kw = dict(k=10, stop_condition=0.05, beam_width=(6, 3), node_eval="segmented",
+              temperatures=(1.0, 0.8, 0.7))
+    before = be_ops.LAUNCHES["beam_eval"]
+    ids, d = filtering.knn_query(index, q.to(dev), planes=planes_lib.from_lmi(
+        index, kw["temperatures"]), **kw)
+    assert be_ops.LAUNCHES["beam_eval"] == before + 2  # both levels below the root prune
+    cpu = index.to("cpu")
+    cids, cd = filtering.knn_query(cpu, q, **kw)
     assert filtering.knn_agree(ids.cpu(), d.cpu(), cids, cd, atol=2e-3).mean() >= 0.95

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -63,7 +64,7 @@ def random_jax_index(seed: int, family: str, arities, n: int = 600, d: int = 12)
                     levels=tuple({k: jnp.asarray(v) for k, v in lv.items()} for lv in levels),
                     bucket_offsets=jnp.zeros((math.prod(arities) + 1,), jnp.int32),
                     sorted_ids=jnp.zeros((n,), jnp.int32), sorted_embeddings=jnp.asarray(x))
-    leaf = np.asarray(jnp.argmax(jlmi.leaf_log_probs(stub, x), axis=-1))
+    leaf = np.asarray(jnp.argmax(jax.jit(jlmi.leaf_log_probs)(stub, x), axis=-1))
     perm = np.argsort(leaf, kind="stable")
     sizes = np.bincount(leaf, minlength=math.prod(arities))
     offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
