@@ -18,6 +18,17 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
     kernel must have launched. The kernel path's answers must equal the
     plain path's (the same index on the CPU) modulo distance ties;
     recall@30 vs brute force is printed;
+ 2b. quantized stores over the main path's index and query batches (no
+    second generation): int8 with row scales and float32 compute, int8
+    with bucket scales and int8 compute, fp8-e4m3 with row scales, fp8
+    with bucket scales. Per store: the counts are set to 0 before and read
+    after; the store's kernel tier must have launched in both gather forms
+    (the query plan's descriptors, and ``filter_topk`` / ``filter_range``
+    called without runs). kNN and range answers equal the plain path's on
+    the same search modulo ties; the card's codes, scales and norms are
+    compared with the CPU's; QPS over 4 timed batches, ``knn_query`` back
+    to back and device only, recall@30 vs brute force and vs the float32
+    store, and the filter kernel's ms, plain ms and byte bound are printed;
  3. depth-3 path, the configuration's beam serving shapes
     (``search_512q_d3_beam_seg``: beam 64, segmented node evaluation;
     ``search_512q_d3_calib``: widths (64, 16), temperatures (1.0, 0.8,
@@ -32,13 +43,17 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
  4. CLI: ``build_index`` -> ``serve`` at the CLI defaults (20k chains,
     (32, 64)), 64 queries, on the card; then a depth-3 segmented beam
     index (16, 16, 16) with prebuilt planes, served from its meta
-    defaults, which must launch beam_eval;
+    defaults, which must launch beam_eval; then an index built with
+    ``--store-dtype int8 --scale-granularity bucket --compute-dtype int8``
+    and served from its meta, whose banner must name that tier and which
+    must launch the int8 variant;
  5. kernels vs their plain PyTorch versions on the card, at the shapes
     the main path gave them (512 queries, the full build's candidate
-    capacity, float32 and bfloat16 stores, 3 metrics; 518,576 x 256 x 45
-    for the assignment; 32,768 (query, prefix) pairs over 4,096 nodes of
-    arity 64 for beam_eval, 3 families), with CUDA-event times and the
-    bound of each.
+    capacity, every store tier (float32, bfloat16, int8 and fp8 with row
+    or bucket scales, int8 compute on the int8 stores) in both gather
+    forms, 3 metrics; 518,576 x 256 x 45 for the assignment; 32,768
+    (query, prefix) pairs over 4,096 nodes of arity 64 for beam_eval, 3
+    families), with CUDA-event times and the bound of each.
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or run
@@ -47,6 +62,8 @@ non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -65,9 +82,11 @@ N_BATCHES = 4  # timed 512-query kNN batches on the main path
 N_FAMILIES = 200
 SEED = 0
 
-# H100 SXM peaks (NVIDIA data sheet): HBM rate, non-tensor-core float32 rate
+# H100 SXM peaks (NVIDIA data sheet): HBM rate, non-tensor-core float32
+# rate, dense int8 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+INT8_OP_PER_S = 1979e12
 
 # |kernel - plain| limits, by metric: the kernels use the norm
 # decomposition, the plain version the direct difference; Euclidean near
@@ -88,6 +107,17 @@ D3_POINTS = (
                                   temperatures=(1.0, 0.8, 0.7))),
 )
 FAMILIES = ("kmeans", "gmm", "kmeans+logreg")
+# (store dtype, scale granularity, compute dtype): the quantized phase's
+# stores, and every tier phase 5 holds against its plain version
+QUANT_STORES = (("int8", "row", "float32"), ("int8", "bucket", "int8"),
+                ("float8_e4m3fn", "row", "float32"), ("float8_e4m3fn", "bucket", "float32"))
+STORE_TIERS = (("float32", "row", "float32"), ("bfloat16", "row", "float32"),
+               ("int8", "row", "float32"), ("int8", "row", "int8"),
+               ("int8", "bucket", "float32"), ("int8", "bucket", "int8"),
+               ("float8_e4m3fn", "row", "float32"), ("float8_e4m3fn", "bucket", "float32"))
+# the integer domain computes the same exact integer dot as its plain
+# version and rounds the same float epilogue steps (JAX's int-domain bound)
+INT_TOL = 2e-5
 MAIN_KERNELS = ("kmeans_assign", "lmi_filter_topk_desc", "lmi_filter_range_desc")
 D3_KERNELS = ("kmeans_assign", "lmi_filter_topk_desc", "beam_eval")
 
@@ -134,11 +164,65 @@ def device_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(n_bytes: float, n_flops: float):
-    """(least ms, what bounds it): bytes over HBM rate vs float32 operations
-    over the non-tensor-core float32 rate."""
-    tb, to = n_bytes / HBM_BYTES_PER_S * 1e3, n_flops / F32_FLOP_PER_S * 1e3
+def bound_ms(n_bytes: float, n_flops: float, op_rate: float = F32_FLOP_PER_S):
+    """(least ms, what bounds it): bytes over HBM rate vs operations over
+    their type's peak rate (float32 outside the tensor cores by default)."""
+    tb, to = n_bytes / HBM_BYTES_PER_S * 1e3, n_flops / op_rate * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def tier_name(tier) -> str:
+    return "/".join(tier)
+
+
+def tier_keys(tier, gathers=("desc", "rows"), kinds=("topk", "range")):
+    """The `lf_ops.TIER_LAUNCHES` keys a store tier's filter calls count
+    under: bucket scales ride per run on the descriptor form and per row
+    on the row form."""
+    dtype, gran, compute = tier
+    keys = []
+    for g in gathers:
+        if dtype in ("float32", "bfloat16"):
+            scale = "none"
+        else:
+            scale = "run" if g == "desc" and gran == "bucket" else "row"
+        keys += [f"lmi_filter_{kind}_{g}:{dtype}:{scale}:{compute}" for kind in kinds]
+    return keys
+
+
+def plain_filter(lf_ref, store_lib, q, rows, valid, st, compute, metric):
+    """The plain (Q, C) distances of a store tier (the kernel's reference)."""
+    if compute == "int8":
+        return lf_ref.lmi_filter_int_ref(q, rows, valid, st.data, store_lib.row_scales(st),
+                                         st.norms, metric=metric)
+    return lf_ref.lmi_filter_ref(q, rows, valid, st.data, metric=metric,
+                                 scales=store_lib.row_scales(st))
+
+
+def plain_topk(torch, dist, k):
+    """Top-k of a plain distance matrix: a stable sort, ties to the lowest slot."""
+    d, s = torch.sort(dist, dim=1, stable=True)
+    return d[:, :k], s[:, :k].to(torch.int32)
+
+
+def launch_operands(torch, lf_ops, store_lib, st, compute, q, rows, valid, runs):
+    """(queries, valid, descriptor-form kwargs, row-form kwargs) of
+    `lf_ops.launch` for a store tier: the kernel's own operands, as the
+    filtering entry points build them."""
+    qf, v, desc = lf_ops.desc_operands(q, valid, runs)
+    extra = {}
+    if compute == "int8":
+        qf, qscale = lf_ops._quantize_queries(qf)
+        extra = dict(qscale=qscale, norms=st.norms)
+    if st.scales is None:
+        dq = rq = dict(scale_mode="none")
+    else:
+        rq = dict(scale_mode="row", scales=store_lib.row_scales(st).contiguous())
+        dq = (dict(scale_mode="run",
+                   scales=lf_ops._run_scales(desc[1], st.scales, st.offsets).contiguous())
+              if st.scale_granularity == "bucket" else rq)
+    return (qf, v, dict(desc=desc, **dq, **extra),
+            dict(rows=rows.to(torch.int32).contiguous(), **rq, **extra))
 
 
 def errors(got, want):
@@ -154,7 +238,7 @@ def counters():
     from repro_torch.kernels.kmeans_assign import ops as ka_ops
     from repro_torch.kernels.lmi_filter import ops as lf_ops
 
-    return (ka_ops.LAUNCHES, lf_ops.LAUNCHES, be_ops.LAUNCHES)
+    return (ka_ops.LAUNCHES, lf_ops.LAUNCHES, lf_ops.TIER_LAUNCHES, be_ops.LAUNCHES)
 
 
 def reset() -> None:
@@ -164,9 +248,10 @@ def reset() -> None:
 
 
 def read() -> dict:
+    """Every kernel's count, and the per-tier filter counts that are not 0."""
     out = {}
     for counts in counters():
-        out.update(counts)
+        out.update((k, n) for k, n in counts.items() if n or ":" not in k)
     return out
 
 
@@ -244,7 +329,7 @@ def depth3_phase(torch, np, index, queries, dev):
         t_query = time.perf_counter() - t0
         pt = read()
         for kname, n in pt.items():
-            phase_launches[kname] += n
+            phase_launches[kname] = phase_launches.get(kname, 0) + n
         qps = N_BATCHES * BATCH / t_query
         check(tuple(ids0.shape) == (BATCH, k) and bool(ids0[:, 0].ge(0).all()),
               f"{name}: kNN shape or a query with no neighbour")
@@ -296,8 +381,8 @@ def depth3_phase(torch, np, index, queries, dev):
             "rank + cut": lambda: lmi._visited_cut(order, bsizes, stop_count),
             "extract": lambda: lmi.extract_rows(order, visited, offsets, cap),
             "descriptors": lambda: lf_ops.desc_operands(q, valid, runs),
-            "filter": lambda: lf_ops.lmi_filter_topk_desc(ops_in[0], store3.data, *ops_in[1:],
-                                                          k, metric=metric),
+            "filter": lambda: lf_ops.launch(ops_in[0], store3.data, ops_in[1], k=k,
+                                            metric=metric, desc=ops_in[2]),
             "knn_query": lambda: knn3(q),
         }
         stage_ms = {sname: (time_ms(torch, fn, 10), device_ms(torch, fn, 10))
@@ -411,6 +496,134 @@ def depth3_phase(torch, np, index, queries, dev):
               f"{st['n_param_loads']}, segmented {st['segmented_bytes'] / 1e6:.1f} MB vs "
               f"gather {st['gather_bytes'] / 1e6:.1f} MB", flush=True)
     return records, phase_launches
+
+
+def filter_bytes(tier, item, d, nq, shapes, form: str, k: int) -> int:
+    """Bytes a filter launch must move at least: each distinct touched row
+    once (1 B an element in the 1-byte tiers), with its scale (row mode) or
+    one scalar per live run (run mode) and its norm (int compute); the
+    queries; the gather's own operands (descriptor form: each query's run
+    count and live descriptors and the valid flag of each covered slot;
+    row form: every valid flag and the row of each valid slot); the output
+    (top-k pairs, or the (Q, C) matrix when k == 0)."""
+    dtype, gran, compute = tier
+    n = shapes["n_touched"] * d * item
+    if dtype in ("int8", "float8_e4m3fn"):
+        n += 4 * (shapes["n_runs"] if form == "desc" and gran == "bucket" else shapes["n_touched"])
+    if compute == "int8":
+        n += 4 * shapes["n_touched"] + nq * d + nq * 4
+    else:
+        n += nq * d * 4
+    if form == "desc":
+        n += nq * 4 + 12 * shapes["n_runs"] + shapes["covered"]
+    else:
+        n += nq * shapes["cap"] + 4 * shapes["n_valid"]
+    return n + (nq * k * 8 if k else nq * shapes["cap"] * 4)
+
+
+def filter_ops(tier, shapes, d):
+    """(operations, their peak rate) of a filter launch: the dot and |c|^2
+    in float32 (4 per gathered element), or the int8 dot (2 per element)."""
+    if tier[2] == "int8":
+        return 2 * shapes["covered"] * d, INT8_OP_PER_S
+    return 4 * shapes["covered"] * d, F32_FLOP_PER_S
+
+
+def quantized_phase(torch, np, index, cpu_index, queries, search, bf, shapes):
+    """Phase 2b: the quantized stores over the main path's index and query
+    batches. -> ({tier name: record}, the phase's launches)."""
+    from repro_torch.core import filtering
+    from repro_torch.core import store as store_lib
+    from repro_torch.kernels.lmi_filter import ops as lf_ops, ref as lf_ref
+
+    k, stop, metric = FULL["k"], FULL["stop"], FULL["metric"]
+    cand_ids, rows, valid, runs = search
+    q = queries[:BATCH]
+    f32_ids, _ = filtering.knn_query(index, q, k=k, stop_condition=stop, metric=metric)
+    f32_ids = f32_ids.cpu().numpy()
+    records, phase_launches = {}, {}
+    for tier in QUANT_STORES:
+        dtype, gran, compute = tier
+        name = tier_name(tier)
+        st = store_lib.from_lmi(index, dtype, scale_granularity=gran)
+        torch.cuda.synchronize()
+        cst = store_lib.from_lmi(cpu_index, dtype, scale_granularity=gran)
+        n_code = int((st.data.cpu().view(torch.uint8) != cst.data.view(torch.uint8)).sum())
+        n_scale = int((st.scales.cpu().view(torch.int32) != cst.scales.view(torch.int32)).sum())
+        n_norm = 0 if cst.norms is None else int((st.norms.cpu() != cst.norms).sum())
+
+        def knn(qb, st=st, compute=compute):
+            return filtering.knn_query(index, qb, k=k, stop_condition=stop, metric=metric,
+                                       store=st, compute_dtype=compute)
+
+        reset()
+        ids0, d0 = knn(q)  # warm-up batch, checked below
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in range(1, N_BATCHES + 1):
+            knn(queries[b * BATCH:(b + 1) * BATCH])
+        torch.cuda.synchronize()
+        t_query = time.perf_counter() - t0
+        rq = filtering.range_query(index, q, 0.5, stop_condition=stop,
+                                   radius_scale=FULL["radius_scale"], store=st,
+                                   compute_dtype=compute)
+        # row-only callers: the filter entry points without the search's runs
+        rk_d, rk_s = filtering.filter_topk(st, q, rows, valid, k, metric=metric,
+                                           compute_dtype=compute)
+        rk_r = filtering.filter_range(st, q, rows, valid, metric=metric, compute_dtype=compute)
+        torch.cuda.synchronize()
+        pt = read()
+        for kname, n in pt.items():
+            phase_launches[kname] = phase_launches.get(kname, 0) + n
+        for key in tier_keys(tier):
+            check(pt.get(key, 0) > 0, f"{name}: kernel tier {key} was not launched")
+        check(tuple(ids0.shape) == (BATCH, k) and bool(ids0[:, 0].ge(0).all()),
+              f"{name}: kNN shape or a query with no neighbour")
+        check(bool(torch.isfinite(d0[ids0 >= 0]).all()), f"{name}: non-finite kNN distance")
+
+        # kernel vs plain on the same search, modulo distance ties
+        pdist = plain_filter(lf_ref, store_lib, q, rows, valid, st, compute, metric)
+        pd, ps = plain_topk(torch, pdist, k)
+        pids = torch.where(pd < 1e37, torch.gather(cand_ids, 1, ps.long()), -1)
+        tol = TOL[metric]
+        for label, (gi, gd) in (("kNN", (ids0, d0)), (
+                "row-gather top-k",
+                (torch.where(rk_d < 1e37, torch.gather(cand_ids, 1, rk_s.clamp(min=0).long()), -1),
+                 rk_d))):
+            agree = filtering.knn_agree(gi.cpu(), gd.cpu(), pids.cpu(), pd.cpu(), atol=tol)
+            check(bool(agree.all()),
+                  f"{name}: {label} differs from the plain path on {int((~agree).sum())} queries")
+        fin = pdist < 1e37
+        for label, got in (("range", rq.distances), ("row-gather range", rk_r)):
+            check(bool(torch.equal(got < 1e37, fin)), f"{name}: {label} valid slots differ")
+            err = float((got[fin] - pdist[fin]).abs().max())
+            check(err <= tol, f"{name}: {label} differs from the plain path by {err}")
+
+        host_ms = time_ms(torch, lambda: knn(q), 10)
+        dev_ms = device_ms(torch, lambda: knn(q), 10)
+        qf, v, dkw, _rkw = launch_operands(torch, lf_ops, store_lib, st, compute, q, rows, valid,
+                                           runs)
+        t_k = time_ms(torch, lambda: lf_ops.launch(qf, st.data, v, k=k, metric=metric, **dkw), 20)
+        t_p = time_ms(torch, lambda: plain_topk(torch, plain_filter(
+            lf_ref, store_lib, q, rows, valid, st, compute, metric), k), 5)
+        ops, rate = filter_ops(tier, shapes, index.dim)
+        b = bound_ms(filter_bytes(tier, 1, index.dim, BATCH, shapes, "desc", k), ops, rate)
+        got = ids0.cpu().numpy()
+        rec_bf, rec_f32 = recall(got, bf, k), recall(got, f32_ids, k)
+        records[name] = dict(qps=N_BATCHES * BATCH / t_query, store_mb=st.nbytes() / 2**20,
+                             knn_ms=host_ms, knn_device_ms=dev_ms, recall_bf=rec_bf,
+                             recall_f32=rec_f32, filter_ms=t_k, plain_ms=t_p, bound_ms=b[0],
+                             code_diffs=(n_code, n_scale, n_norm))
+        print(f"quantized {name}: store {st.nbytes() / 2**20:.2f} MB | "
+              f"{N_BATCHES * BATCH / t_query:.0f} QPS over {N_BATCHES}x{BATCH} | knn_query "
+              f"{host_ms:.4f} ms back to back, {dev_ms:.4f} device only | recall@{k} vs brute "
+              f"force {rec_bf:.4f}, vs the float32 store {rec_f32:.4f} | filter kernel "
+              f"{t_k:.4f} ms (plain {t_p:.3f}, bound {b[0]:.4f} by {b[1]}) | kernel == plain "
+              f"modulo ties (both gathers) | card vs CPU differing codes {n_code}, scales "
+              f"{n_scale}, norms {n_norm} | launches "
+              + ", ".join(f"{key} {pt.get(key, 0)}" for key in tier_keys(tier)), flush=True)
+    return records, phase_launches
+
 
 
 def main() -> None:
@@ -556,13 +769,26 @@ def main() -> None:
         "rank+cut": lambda: lmi.rank_visited_buckets(logp, index.bucket_sizes(), stop_count),
         "extract": lambda: lmi.extract_rows(order, visited, index.bucket_offsets, cap),
         "descriptors": lambda: lf_ops.desc_operands(q, valid, runs),
-        "filter kernel": lambda: lf_ops.lmi_filter_topk_desc(
-            ops_main[0], store.data, *ops_main[1:], FULL["k"], metric=FULL["metric"]),
+        "filter kernel": lambda: lf_ops.launch(
+            ops_main[0], store.data, ops_main[1], k=FULL["k"], metric=FULL["metric"],
+            desc=ops_main[2]),
         "knn_query": lambda: knn(q),
     }
     stage_ms = {name: time_ms(torch, fn, 10) for name, fn in stages.items()}
     print("query stages, ms per 512-query batch: "
           + " | ".join(f"{n} {v:.4f}" for n, v in stage_ms.items()), flush=True)
+
+    # the filter's shapes at the main path's search, for the bounds
+    covered = int(n_cands.clamp(max=cap).sum())
+    touched = torch.zeros(index.n_objects, dtype=torch.bool, device=dev)
+    touched[rows[valid].long()] = True
+    nrun, dstart, _doff, _dlen = lf_ops._run_descriptors(runs, cap)
+    shapes = dict(covered=covered, n_touched=int(touched.sum()), n_runs=int(nrun.sum()), cap=cap,
+                  n_valid=int(valid.sum()))
+
+    # ---- 2b. the quantized stores over the same index and queries
+    quant_records, quant_launches = quantized_phase(
+        torch, np, index, cpu_index, queries, (cand_ids, rows, valid, runs), bf, shapes)
 
     # ---- 3. the depth-3 beam serving points
     beam_records, d3_launches = depth3_phase(torch, np, index, queries, dev)
@@ -582,70 +808,84 @@ def main() -> None:
                             "--beam", "8", "--node-eval", "segmented", "--prebuilt-planes"])
             served3 = serve_cli.main(["--index", out3, "--n-queries", "64", "--device", "cuda"])
             cli3_launches = read()
-        print(f"CLI phase launches {cli_launches}; depth-3 beam CLI launches {cli3_launches}",
-              flush=True)
+            outq = os.path.join(tmp, "index_int8")
+            reset()
+            build_cli.main(["--out", outq, "--device", "cuda", "--store-dtype", "int8",
+                            "--scale-granularity", "bucket", "--compute-dtype", "int8"])
+            banner = io.StringIO()
+            with contextlib.redirect_stdout(banner):
+                servedq = serve_cli.main(["--index", outq, "--n-queries", "64", "--device",
+                                          "cuda"])
+            print(banner.getvalue(), end="")
+            cliq_launches = read()
+        print(f"CLI phase launches {cli_launches}; depth-3 beam CLI launches {cli3_launches}; "
+              f"int8 CLI launches {cliq_launches}", flush=True)
         check(served.shape == (64, 30) and (served[:, 0] >= 0).all(), "serve answers")
         check(cli_launches["kmeans_assign"] > 0 and cli_launches["lmi_filter_topk_desc"] > 0,
               "the CLIs did not run the kernels")
         check(served3.shape == (64, 30) and (served3[:, 0] >= 0).all(), "depth-3 serve answers")
         for name in D3_KERNELS:
             check(cli3_launches[name] > 0, f"the depth-3 beam CLIs did not launch {name}")
+        check(servedq.shape == (64, 30) and (servedq[:, 0] >= 0).all(), "int8 serve answers")
+        check("store dtype int8 (bucket scales, int8 compute)" in banner.getvalue(),
+              "the int8 serve banner does not name its tier")
+        check(cliq_launches.get("lmi_filter_topk_desc:int8:run:int8", 0) > 0,
+              "the int8 CLIs did not launch the int8 variant")
 
-    # ---- 5. kernels vs plain versions at the main path's shapes
-    covered = int(n_cands.clamp(max=cap).sum())
-    touched = torch.zeros(index.n_objects, dtype=torch.bool, device=dev)
-    touched[rows[valid].long()] = True
-    n_touched = int(touched.sum())
-    nrun, dstart, _doff, _dlen = lf_ops._run_descriptors(runs, cap)
-    # what the kernels must read besides the rows: the queries, each
-    # query's run count and its nrun live descriptors, the valid flag of
-    # each covered slot (entries past nrun / past the cover are never read)
-    meta_bytes = q.numel() * 4 + nrun.numel() * 4 + 12 * int(nrun.sum()) + covered
+    # ---- 5. kernels vs plain versions at the main path's shapes, every
+    # store tier in both gather forms
     d = index.dim
     print(f"filter shapes: Q={BATCH} cap={cap} K={dstart.shape[1]} covered slots={covered} "
-          f"distinct rows={n_touched}", flush=True)
+          f"distinct rows={shapes['n_touched']} live runs={shapes['n_runs']} "
+          f"valid slots={shapes['n_valid']}", flush=True)
     records = {}
-    for sdt in ("float32", "bfloat16"):
-        st = store_lib.from_lmi(index, sdt)
+    for tier in STORE_TIERS:
+        dtype, gran, compute = tier
+        st = store_lib.from_lmi(index, dtype, scale_granularity=gran)
         item = st.data.element_size()
+        qf, v, dkw, rkw = launch_operands(torch, lf_ops, store_lib, st, compute, q, rows, valid,
+                                          runs)
         for metric in ("euclidean", "sq_euclidean", "cosine"):
-            kd, ks = lf_ops.lmi_filter_topk(q, rows, valid, st.data, FULL["k"], metric=metric,
-                                            runs=runs)
-            rd, rs = lf_ref.lmi_filter_topk_ref(q, rows, valid, st.data, FULL["k"], metric=metric)
-            fin = rd < 1e37
-            check(bool(torch.equal(fin, kd < 1e37)), f"topk {sdt}/{metric}: exhausted slots")
-            terr, trel = errors(kd[fin], rd[fin])
-            check(terr <= TOL[metric], f"topk {sdt}/{metric}: |err| {terr} > {TOL[metric]}")
-            kr = lf_ops.lmi_filter_range(q, rows, valid, st.data, metric=metric, runs=runs)
-            rr = lf_ref.lmi_filter_ref(q, rows, valid, st.data, metric=metric)
-            check(bool(torch.equal(kr < 1e37, rr < 1e37)), f"range {sdt}/{metric}: valid slots")
-            fr = rr < 1e37
-            rerr, rrel = errors(kr[fr], rr[fr])
-            check(rerr <= TOL[metric], f"range {sdt}/{metric}: |err| {rerr} > {TOL[metric]}")
-            reps = 20
-            ops_in = lf_ops.desc_operands(q, valid, runs)
-            t_topk = time_ms(torch, lambda: lf_ops.lmi_filter_topk_desc(
-                ops_in[0], st.data, *ops_in[1:], FULL["k"], metric=metric), reps)
-            t_topk_host = time_ms(torch, lambda: lf_ops.lmi_filter_topk(
-                q, rows, valid, st.data, FULL["k"], metric=metric, runs=runs), reps)
-            t_topk_ref = time_ms(torch, lambda: lf_ref.lmi_filter_topk_ref(
-                q, rows, valid, st.data, FULL["k"], metric=metric), 5)
-            t_range = time_ms(torch, lambda: lf_ops.lmi_filter_range_desc(
-                ops_in[0], st.data, *ops_in[1:], metric=metric), reps)
-            t_range_ref = time_ms(torch, lambda: lf_ref.lmi_filter_ref(
-                q, rows, valid, st.data, metric=metric), 5)
-            flops = covered * d * 4  # q.c and |c|^2: two FMAs per gathered element
-            in_bytes = n_touched * d * item + meta_bytes
-            b_topk = bound_ms(in_bytes + BATCH * FULL["k"] * 8, flops)
-            b_range = bound_ms(in_bytes + BATCH * cap * 4, flops)
-            print(f"  {sdt:8s} {metric:12s} topk {t_topk:.4f} ms (+descriptors {t_topk_host:.4f}, "
-                  f"plain {t_topk_ref:.3f}, "
-                  f"bound {b_topk[0]:.4f}) err {terr:.1e} rel {trel:.1e} | range {t_range:.4f} ms "
-                  f"(plain {t_range_ref:.3f}, bound {b_range[0]:.4f}) err {rerr:.1e} "
-                  f"rel {rrel:.1e} | "
-                  f"gathered {covered * d * item / 1e6:.1f} MB", flush=True)
-            records[(sdt, metric)] = dict(topk=(t_topk, t_topk_ref, b_topk, terr, trel),
-                                          range=(t_range, t_range_ref, b_range, rerr, rrel))
+            tol = INT_TOL if compute == "int8" else TOL[metric]
+            plain = plain_filter(lf_ref, store_lib, q, rows, valid, st, compute, metric)
+            pd, ps = plain_topk(torch, plain, FULL["k"])
+            fin_r, fin_k = plain < 1e37, pd < 1e37
+            rec = {}
+            for form, kw in (("desc", dkw), ("rows", rkw)):
+                kd, ks = lf_ops.launch(qf, st.data, v, k=FULL["k"], metric=metric, **kw)
+                kr = lf_ops.launch(qf, st.data, v, metric=metric, **kw)
+                check(bool(torch.equal(fin_k, kd < 1e37)),
+                      f"topk {form} {tier_name(tier)}/{metric}: exhausted slots")
+                terr, trel = errors(kd[fin_k], pd[fin_k])
+                check(terr <= tol, f"topk {form} {tier_name(tier)}/{metric}: |err| {terr} > {tol}")
+                check(bool(torch.equal(kr < 1e37, fin_r)),
+                      f"range {form} {tier_name(tier)}/{metric}: valid slots")
+                rerr, rrel = errors(kr[fin_r], plain[fin_r])
+                check(rerr <= tol, f"range {form} {tier_name(tier)}/{metric}: |err| {rerr} > {tol}")
+                t_topk = time_ms(torch, lambda kw=kw: lf_ops.launch(
+                    qf, st.data, v, k=FULL["k"], metric=metric, **kw), 20)
+                t_range = time_ms(torch, lambda kw=kw: lf_ops.launch(
+                    qf, st.data, v, metric=metric, **kw), 20)
+                ops, rate = filter_ops(tier, shapes, d)
+                b_topk = bound_ms(filter_bytes(tier, item, d, BATCH, shapes, form, FULL["k"]),
+                                  ops, rate)
+                b_range = bound_ms(filter_bytes(tier, item, d, BATCH, shapes, form, 0), ops, rate)
+                rec[form] = dict(topk=[t_topk, None, b_topk, terr, trel],
+                                 range=[t_range, None, b_range, rerr, rrel])
+            t_topk_ref = time_ms(torch, lambda: plain_topk(torch, plain_filter(
+                lf_ref, store_lib, q, rows, valid, st, compute, metric), FULL["k"]), 5)
+            t_range_ref = time_ms(torch, lambda: plain_filter(
+                lf_ref, store_lib, q, rows, valid, st, compute, metric), 5)
+            for form in rec:
+                rec[form]["topk"][1], rec[form]["range"][1] = t_topk_ref, t_range_ref
+            records[(tier_name(tier), metric)] = rec
+            print(f"  {tier_name(tier):30s} {metric:12s} "
+                  + " | ".join(f"{form}: topk {r['topk'][0]:.4f} (bound {r['topk'][2][0]:.4f}, "
+                               f"err {r['topk'][3]:.1e}) range {r['range'][0]:.4f} (bound "
+                               f"{r['range'][2][0]:.4f}, err {r['range'][3]:.1e})"
+                               for form, r in rec.items())
+                  + f" | plain topk {t_topk_ref:.3f} range {t_range_ref:.3f} | gathered "
+                  f"{covered * d * item / 1e6:.1f} MB", flush=True)
 
     x = emb  # the root fit's shapes: every point against the 256 root centroids
     c = index.levels[0]["centroids"]
@@ -667,25 +907,62 @@ def main() -> None:
           f"label swaps {int(swapped.sum())}",
           flush=True)
 
-    main_rec = records[(FULL["store_dtype"], FULL["metric"])]
-
-    def entry(name, cu, replaces, rec, n_launch):
+    def entry(name, replaces, rec, n_launch, **extra):
         ms, plain, (bms, by), err, rel = rec
-        return {"name": name, "route": "cuda", "source": cu, "replaces": replaces,
+        return {"name": name, "route": "cuda", "source": lf_src, "replaces": replaces,
                 "launches": n_launch, "max_abs_err": err, "max_rel_err": rel, "ms": ms,
-                "plain_ms": plain,
-                "bound_ms": bms, "bound_by": by, "library_ms": None}
+                "plain_ms": plain, "bound_ms": bms, "bound_by": by, "library_ms": None, **extra}
 
+    def tiers(kind, form, metric=FULL["metric"]):
+        """Every tier's (ms, plain, bound) of one kernel and gather form."""
+        return {tier_name(t): dict(zip(("ms", "plain_ms", "bound_ms"), (
+            records[(tier_name(t), metric)][form][kind][0],
+            records[(tier_name(t), metric)][form][kind][1],
+            records[(tier_name(t), metric)][form][kind][2][0]))) for t in STORE_TIERS}
+
+    def rec(tier, form, kind):
+        return records[(tier_name(tier), FULL["metric"])][form][kind]
+
+    def tier_launches(pred) -> int:
+        """Launches of the quantized phase whose tier key satisfies pred."""
+        return sum(n for key, n in quant_launches.items() if ":" in key and pred(key.split(":")))
+
+    kf = "src/repro/kernels/lmi_filter/kernel.py"
+    main_tier = (FULL["store_dtype"], "row", "float32")
+    int_tier = ("int8", "bucket", "int8")
     lf_src = "src/repro_torch/kernels/lmi_filter/csrc/lmi_filter.cu"
     out = {"kernels": [
-        entry("lmi_filter_topk_desc", lf_src, "src/repro/kernels/lmi_filter/kernel.py:691",
-              main_rec["topk"], launches["lmi_filter_topk_desc"]),
-        entry("lmi_filter_range_desc", lf_src, "src/repro/kernels/lmi_filter/kernel.py:650",
-              main_rec["range"], launches["lmi_filter_range_desc"]),
-        entry("kmeans_assign", "src/repro_torch/kernels/kmeans_assign/csrc/kmeans_assign.cu",
-              "src/repro/kernels/kmeans_assign/kernel.py:42",
-              (t_assign, t_assign_ref, b_assign, aerr, arel), launches["kmeans_assign"]),
-    ]}
+        entry("lmi_filter_topk_desc", f"{kf}:691", rec(main_tier, "desc", "topk"),
+              launches["lmi_filter_topk_desc"], store=tier_name(main_tier),
+              tiers=tiers("topk", "desc")),
+        entry("lmi_filter_range_desc", f"{kf}:650", rec(main_tier, "desc", "range"),
+              launches["lmi_filter_range_desc"], store=tier_name(main_tier),
+              tiers=tiers("range", "desc")),
+        entry("lmi_filter_topk_rows", f"{kf}:604", rec(int_tier, "rows", "topk"),
+              quant_launches.get("lmi_filter_topk_rows", 0), store=tier_name(int_tier),
+              tiers=tiers("topk", "rows")),
+        entry("lmi_filter_range_rows", f"{kf}:565", rec(int_tier, "rows", "range"),
+              quant_launches.get("lmi_filter_range_rows", 0), store=tier_name(int_tier),
+              tiers=tiers("range", "rows")),
+        # the quantized tiers inside the four: each timed as the top-k
+        # descriptor kernel of the store that exercises it; launches are the
+        # quantized phase's launches of any kernel running that tier
+        entry("lmi_filter_dequant", f"{kf}:230",
+              rec(("int8", "row", "float32"), "desc", "topk"),
+              tier_launches(lambda t: t[1] in ("int8", "float8_e4m3fn") and t[3] == "float32"),
+              store="int8/row/float32"),
+        entry("lmi_filter_run_scale", f"{kf}:212",
+              rec(("float8_e4m3fn", "bucket", "float32"), "desc", "topk"),
+              tier_launches(lambda t: t[2] == "run"), store="float8_e4m3fn/bucket/float32"),
+        entry("lmi_filter_int8", f"{kf}:274", rec(int_tier, "desc", "topk"),
+              tier_launches(lambda t: t[3] == "int8"), store=tier_name(int_tier)),
+        {"name": "kmeans_assign", "route": "cuda",
+         "source": "src/repro_torch/kernels/kmeans_assign/csrc/kmeans_assign.cu",
+         "replaces": "src/repro/kernels/kmeans_assign/kernel.py:42",
+         "launches": launches["kmeans_assign"], "max_abs_err": aerr, "max_rel_err": arel,
+         "ms": t_assign, "plain_ms": t_assign_ref, "bound_ms": b_assign[0],
+         "bound_by": b_assign[1], "library_ms": None},
+    ], "quantized_stores": quant_records}
     kb = beam_records["kmeans"]  # the family of the path; all three under "families"
     out["kernels"].append({
         "name": "beam_eval", "route": "cuda",

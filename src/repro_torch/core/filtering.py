@@ -6,13 +6,15 @@ cheap vector distance from each query to its candidate rows of the
 `CandidateStore` and applies the query predicate — a radius cut
 (`range_query`, paper Table 2) or the k nearest (`knn_query`, Table 3).
 
-`filter_range` / `filter_topk` are the filtering entry points. Dispatch
-is by device, not by ``use_kernel``: on CUDA tensors they always launch
-the hand-written lmi_filter kernels with the search's `BucketRuns`
-(per-run descriptor gather; no fallback), on CPU tensors they run the
-plain version in `repro_torch.kernels.lmi_filter.ref`. ``use_kernel`` is
-accepted for the JAX signatures, where its default False means "the
-oracle"; here it changes nothing.
+`filter_range` / `filter_topk` are the filtering entry points, for every
+store tier (f32 / bf16 / int8 / fp8, row or bucket scales) and both
+contraction domains (``compute_dtype``). Dispatch is by device, not by
+``use_kernel``: on CUDA tensors they always launch the hand-written
+lmi_filter kernel (per-run descriptor gather with the search's
+`BucketRuns`, the row gather without them; no fallback), on CPU tensors
+they run the plain version in `repro_torch.kernels.lmi_filter.ref`.
+``use_kernel`` is accepted for the JAX signatures, where its default
+False means "the oracle"; here it changes nothing.
 """
 from __future__ import annotations
 
@@ -35,28 +37,60 @@ class FilterResult(NamedTuple):
     mask: torch.Tensor  # (Q, C) bool — passes the predicate
 
 
+def _effective_compute(store, compute_dtype: str) -> str:
+    """The compute dtype the filter runs, by the JAX package's rule: the
+    integer domain needs int8 rows plus the store's integer norms; every
+    other store (f32 / bf16 / fp8, or an int8 store without norms) runs
+    float32. A rule of the reference's dtypes, not a device fallback."""
+    if compute_dtype == "int8" and store.dtype == "int8" and store.norms is not None:
+        return "int8"
+    return "float32"
+
+
+def _quant_kwargs(store, runs, compute: str) -> dict:
+    """The filter wrapper's quantization operands from the store: bucket
+    scales ride as raw bucket scalars when the descriptor gather
+    (``runs``) takes them per run, and are expanded to per-row scales
+    otherwise; the integer domain adds the norms."""
+    kw = {"compute_dtype": compute}
+    if store.scales is not None:
+        if store.scale_granularity == "bucket" and runs is not None:
+            kw["bucket_scales"] = store.scales
+            kw["offsets"] = store.offsets
+        else:
+            kw["scales"] = store_lib.row_scales(store)
+    if compute == "int8":
+        kw["norms"] = store.norms
+    return kw
+
+
 def filter_range(store, queries, rows, valid, *, metric: str = "euclidean",
-                 use_kernel: bool = False, runs=None):
+                 use_kernel: bool = False, runs=None, compute_dtype: str = "float32"):
     """(Q, C) f32 distances of each query to its candidate rows of
     ``store``; invalid slots get +3.4e38. ``runs`` (`lmi.BucketRuns`)
-    feeds the CUDA kernel's descriptor gather."""
+    selects the CUDA kernel's descriptor gather; ``compute_dtype="int8"``
+    the integer domain (int8 stores with norms; see `_effective_compute`)."""
     del use_kernel
-    return lf_ops.lmi_filter_range(queries, rows, valid, store.data, metric=metric, runs=runs)
+    compute = _effective_compute(store, compute_dtype)
+    return lf_ops.lmi_filter_range(queries, rows, valid, store.data, metric=metric, runs=runs,
+                                   **_quant_kwargs(store, runs, compute))
 
 
 def filter_topk(store, queries, rows, valid, k: int, *, metric: str = "euclidean",
-                use_kernel: bool = False, runs=None):
+                use_kernel: bool = False, runs=None, compute_dtype: str = "float32"):
     """Top-k smallest candidate distances over ``store``: -> (dist (Q, k)
     ascending, slot (Q, k) into the candidate axis), ties to the lowest
-    slot."""
+    slot. ``runs`` and ``compute_dtype`` as in `filter_range`."""
     del use_kernel
+    compute = _effective_compute(store, compute_dtype)
     return lf_ops.lmi_filter_topk(queries, rows, valid, store.data, k, metric=metric,
-                                  runs=runs)
+                                  runs=runs, **_quant_kwargs(store, runs, compute))
 
 
 def _query_impl(index, store, queries, radius, *, stop_count: int, cap: int, metric: str,
                 mode: str, k: int, bucket_topk: Optional[int] = None, beam_width=None,
-                node_eval: str = "gather", temperatures=None, planes=None):
+                node_eval: str = "gather", temperatures=None, planes=None,
+                compute_dtype: str = "float32"):
     """The whole query: search -> filter -> predicate. ``store`` shares
     the index's CSR layout, so the search's rows address it directly.
     ``radius`` is a Python float; comparing it with float32 distances
@@ -67,14 +101,16 @@ def _query_impl(index, store, queries, radius, *, stop_count: int, cap: int, met
         index, queries, stop_count, cap, bucket_topk, beam_width, node_eval, temperatures,
         planes)
     if mode == "range":
-        d = filter_range(store, queries, rows, valid, metric=metric, runs=runs)
+        d = filter_range(store, queries, rows, valid, metric=metric, runs=runs,
+                         compute_dtype=compute_dtype)
         mask = d <= radius
         return torch.where(mask, cand_ids, -1), d, mask
     # kNN: top-k then range-limit (equivalent to limit-then-top-k). k may
     # exceed the candidate capacity (tiny buckets): clamp the filter and
     # pad the tail with not-found slots, as the JAX plan does.
     kk = min(k, cap)
-    top_d, top_slot = filter_topk(store, queries, rows, valid, kk, metric=metric, runs=runs)
+    top_d, top_slot = filter_topk(store, queries, rows, valid, kk, metric=metric, runs=runs,
+                                  compute_dtype=compute_dtype)
     if kk < k:
         top_d = torch.nn.functional.pad(top_d, (0, k - kk), value=_BIG)
         top_slot = torch.nn.functional.pad(top_slot, (0, k - kk), value=-1)
@@ -120,16 +156,19 @@ def range_query(index, queries, radius: float, stop_condition: float = 0.01,
                 metric: str = "euclidean", radius_scale: float = 1.0,
                 use_kernel: bool = False, candidate_cap: Optional[int] = None,
                 store=None, bucket_topk: Optional[int] = None, beam_width=None,
-                node_eval: str = "gather", temperatures=None, planes=None) -> FilterResult:
+                node_eval: str = "gather", temperatures=None, planes=None,
+                compute_dtype: str = "float32") -> FilterResult:
     """End-to-end LMI range query. ``radius`` is in ground-truth units;
     ``radius_scale`` maps it into embedding space (paper footnote 3).
     ``beam_width`` (scalar or per-level schedule; None == exact),
     ``node_eval`` ("gather" / "segmented"), ``temperatures`` and prebuilt
-    ``planes`` shape the leaf ranking as in `lmi.search`."""
+    ``planes`` shape the leaf ranking as in `lmi.search`; ``store`` picks
+    the candidate-store precision and ``compute_dtype`` ("float32" /
+    "int8") the filter's contraction domain."""
     q = torch.as_tensor(queries, dtype=torch.float32, device=index.device)
     ids, d, mask = _query_impl(
         index, _store_for(index, store), q, radius * radius_scale, metric=metric,
-        mode="range", k=0, bucket_topk=bucket_topk,
+        mode="range", k=0, bucket_topk=bucket_topk, compute_dtype=compute_dtype,
         **_plan_args(index, stop_condition, candidate_cap, beam_width, temperatures,
                      node_eval, planes))
     return FilterResult(ids=ids, distances=d, mask=mask)
@@ -140,15 +179,16 @@ def knn_query(index, queries, k: int, stop_condition: float = 0.01,
               radius_scale: float = 1.0, use_kernel: bool = False,
               candidate_cap: Optional[int] = None, store=None,
               bucket_topk: Optional[int] = None, beam_width=None, node_eval: str = "gather",
-              temperatures=None, planes=None):
+              temperatures=None, planes=None, compute_dtype: str = "float32"):
     """kNN over the candidate set (paper Table 3: 30NN with max radius).
     -> (ids (Q, k), distances (Q, k)); slots beyond the candidates found
-    hold id -1 / distance +inf. The beam arguments are `range_query`'s."""
+    hold id -1 / distance +inf. The beam, store and compute arguments are
+    `range_query`'s."""
     q = torch.as_tensor(queries, dtype=torch.float32, device=index.device)
     radius = _BIG if max_radius is None else max_radius * radius_scale
     ids, d, _found = _query_impl(
         index, _store_for(index, store), q, radius, metric=metric, mode="knn", k=int(k),
-        bucket_topk=bucket_topk,
+        bucket_topk=bucket_topk, compute_dtype=compute_dtype,
         **_plan_args(index, stop_condition, candidate_cap, beam_width, temperatures,
                      node_eval, planes))
     return ids, d

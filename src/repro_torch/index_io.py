@@ -88,11 +88,14 @@ def _write_npz(directory: str, leaves: dict, treedef: str) -> None:
 def save_index(directory: str, index: LMI, *, n_sections: int, cutoff: float, seed: int = 0,
                store_dtype: str = "float32", beam_width=None, beam_widths=None,
                temperatures=None, node_eval: str = "gather", prebuilt_planes: bool = False,
+               scale_granularity: str = "row", compute_dtype: str = "float32",
                **extra_meta) -> None:
     """Persist a built LMI as format 2 (atomic npz + meta.json).
 
-    The optional meta keys are written only when set, as the JAX package
-    does: ``beam_widths`` (a per-level schedule), ``temperatures``, and
+    The optional meta keys are written only when set or not the default,
+    as the JAX package does: ``scale_granularity`` (not "row"),
+    ``compute_dtype`` (not "float32"), ``beam_widths`` (a per-level
+    schedule), ``temperatures``, and
     with ``prebuilt_planes=True`` the canonical node planes of
     `core.planes.from_lmi` under ``<dir>/planes/step_0.npz`` plus a
     ``prebuilt_planes`` key with their revision and temperatures."""
@@ -115,6 +118,10 @@ def save_index(directory: str, index: LMI, *, n_sections: int, cutoff: float, se
         node_eval=node_eval, seed=seed,
         **extra_meta,
     )
+    if scale_granularity != "row":
+        meta["scale_granularity"] = scale_granularity
+    if compute_dtype != "float32":
+        meta["compute_dtype"] = compute_dtype
     if beam_widths is not None:
         meta["beam_widths"] = [int(b) for b in beam_widths]
     if temperatures is not None:

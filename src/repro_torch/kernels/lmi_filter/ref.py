@@ -5,7 +5,9 @@ Materializes the (Q, C, d) candidate gather on purpose: it is the
 straightforward reference the fused kernels are checked against, on the
 CPU in the tests and on the card in chip_smoke.py. Distances depend only
 on rows / valid, so one reference covers the row and the descriptor
-gathers alike.
+gathers alike. Every store tier: ``scales`` is the per-row view
+(`store.row_scales`), and `lmi_filter_int_ref` is the integer-domain
+path of int8 stores.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ def lmi_filter_ref(queries, rows, valid, embeddings, metric: str = "euclidean",
     """(Q, C) candidate distances; invalid slots get +_BIG.
 
     queries (Q, d), rows (Q, C) int indices into embeddings (M, d)
-    [f32/bf16 + optional (M,) scales], valid (Q, C) bool.
+    [f32/bf16/int8/fp8 + optional (M,) scales], valid (Q, C) bool.
     """
     from repro_torch.core.store import gather_dequant
 
@@ -52,3 +54,33 @@ def lmi_filter_topk_ref(queries, rows, valid, embeddings, k: int,
     d = lmi_filter_ref(queries, rows, valid, embeddings, metric=metric, scales=scales)
     dist, slot = torch.sort(d, dim=1, stable=True)
     return dist[:, :k], slot[:, :k].to(torch.int32)
+
+
+def lmi_filter_int_ref(queries, rows, valid, embeddings, scales, norms,
+                       metric: str = "euclidean"):
+    """Integer-domain (Q, C) distances over an int8 store, step for step
+    the JAX oracle: queries quantized per query (`ops._quantize_queries`),
+    the exact integer dot (every partial sum is an integer below 2^24, so
+    float32 sums give the int32 value in any order), the store's integer
+    row norms for |c|^2, and the per-row ``scales`` (expand bucket
+    granularity with `store.row_scales` first) only in the epilogue."""
+    from repro_torch.kernels.lmi_filter.ops import _quantize_queries
+
+    qi, s_q = _quantize_queries(queries.float())
+    rows = rows.long()
+    qf = qi.float()
+    cand = embeddings[rows].float()  # (Q, C, d) integer values
+    qc = torch.sum(cand * qf[:, None, :], dim=-1)  # exact
+    cn = norms[rows].float()
+    qn = torch.sum(qf ** 2, dim=-1)[:, None]
+    s_c = scales.float()[rows]  # (Q, C)
+    if metric in ("euclidean", "sq_euclidean"):
+        d = torch.clamp(s_c * s_c * cn - 2.0 * (s_c * s_q) * qc + (s_q * s_q) * qn, min=0.0)
+        if metric == "euclidean":
+            d = torch.sqrt(d)
+    elif metric == "cosine":
+        den = torch.sqrt(torch.clamp(cn * qn, min=_EPS * _EPS))
+        d = 1.0 - qc / den
+    else:
+        raise ValueError(f"unknown metric {metric!r}")
+    return torch.where(valid, d, torch.full_like(d, _BIG))

@@ -7,8 +7,9 @@
 Generates the synthetic protein dataset (in chunks), embeds it on the
 device, builds the K-Means level stack and saves it in the JAX package's
 format 2 (docs/index_format.md), which JAX's ``load_index`` reads too.
-Flags are the JAX launcher's, over what this slice supports, plus
+Flags are the JAX launcher's, over what the port supports, plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain versions).
+``--store-dtype`` / ``--scale-granularity`` / ``--compute-dtype`` and
 ``--beam`` / ``--node-eval`` record the serving defaults in meta.json;
 ``--prebuilt-planes`` saves the canonical node planes of the segmented
 beam beside the index.
@@ -93,7 +94,16 @@ def main(argv=None):
                     help="node model family (only kmeans builds in the port so far)")
     ap.add_argument("--store-dtype", type=str, default="float32",
                     help="serving-time candidate-store precision recorded in meta.json "
-                         "(float32 or bfloat16 in the port so far)")
+                         f"(one of {', '.join(store_lib.STORE_DTYPES)}; the store is "
+                         "re-materialized from the f32 CSR arrays at load)")
+    ap.add_argument("--scale-granularity", type=str, default="row",
+                    help="quantization scale granularity recorded in meta.json: 'row' "
+                         "(one absmax scale per CSR row) or 'bucket' (one per CSR bucket, "
+                         "delivered per run to the filter kernel)")
+    ap.add_argument("--compute-dtype", choices=("float32", "int8"), default="float32",
+                    help="serving-time filter contraction domain recorded in meta.json "
+                         "('int8' = the integer-domain path for int8 stores; other "
+                         "stores run float32)")
     ap.add_argument("--beam", type=str, default=None,
                     help="default serving beam recorded in meta.json: a scalar width, "
                          "a comma schedule '64,16' (one width per pruned level), or 0 "
@@ -117,7 +127,7 @@ def main(argv=None):
     arities = parse_arities(args)
     # fail fast on knobs this slice cannot serve, before generation and fits
     store_lib.validate_dtype(args.store_dtype, flag="--store-dtype")
-    store_lib.require_supported(args.store_dtype)
+    store_lib.validate_granularity(args.scale_granularity)
     lmi._require_kmeans(args.model)
     if args.calibrate:
         raise NotImplementedError(
@@ -147,15 +157,19 @@ def main(argv=None):
     print(f"index structure: {index.memory_bytes() / 2**20:.1f} MB "
           f"(+data: {index.memory_bytes(include_data=True) / 2**20:.1f} MB)")
     if args.store_dtype != "float32":
-        st = store_lib.from_lmi(index, args.store_dtype)
-        print(f"candidate store ({args.store_dtype}): "
-              f"{st.nbytes(include_metadata=False) / 2**20:.1f} MB")
+        st = store_lib.from_lmi(index, args.store_dtype,
+                                scale_granularity=args.scale_granularity)
+        f32_bytes = index.sorted_embeddings.numel() * 4
+        print(f"candidate store ({args.store_dtype}, {args.scale_granularity} scales): "
+              f"{st.nbytes(include_metadata=False) / 2**20:.1f} MB "
+              f"({f32_bytes / max(st.nbytes(include_metadata=False), 1):.1f}x smaller than f32)")
 
     save_index(args.out, index, n_sections=args.sections, cutoff=args.cutoff, seed=args.seed,
                store_dtype=args.store_dtype,
                beam_width=beam if isinstance(beam, int) else None,
                beam_widths=beam if isinstance(beam, tuple) else None,
                node_eval=args.node_eval, prebuilt_planes=args.prebuilt_planes,
+               scale_granularity=args.scale_granularity, compute_dtype=args.compute_dtype,
                build_seconds=t_build, embed_seconds=t_embed)
     if args.prebuilt_planes:
         planes = load_planes(args.out, index)

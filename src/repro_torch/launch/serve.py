@@ -13,13 +13,15 @@ A warmup batch runs first, so the reported QPS and per-query p50 / p99
 (each query's share of its batch's service time) are steady-state.
 The continuous-batching harness is a later slice (ROADMAP queue A).
 
-The beam, temperatures and node evaluation default to the build's
-meta.json keys as in the JAX launcher (a ``beam_widths`` schedule over
-the scalar ``beam_width``; missing keys mean exact enumeration,
-temperature 1.0, per-pair gather); ``--beam`` / ``--temperatures`` /
-``--node-eval`` override them. Indexes built with ``--prebuilt-planes``
-serve the segmented beam from the saved planes, refolded at startup when
-the serving temperatures differ from theirs.
+The store precision, scale granularity, compute dtype, beam,
+temperatures and node evaluation default to the build's meta.json keys
+as in the JAX launcher (a ``beam_widths`` schedule over the scalar
+``beam_width``; missing keys mean a float32 store, row scales, float32
+compute, exact enumeration, temperature 1.0, per-pair gather); the flags
+of the same names override them. The banner names the compute dtype the
+filter resolved (int8 compute needs an int8 store). Indexes built with
+``--prebuilt-planes`` serve the segmented beam from the saved planes,
+refolded at startup when the serving temperatures differ from theirs.
 """
 from __future__ import annotations
 
@@ -47,8 +49,17 @@ def main(argv=None):
     ap.add_argument("--radius", type=float, default=None)
     ap.add_argument("--metric", choices=("euclidean", "cosine"), default="euclidean")
     ap.add_argument("--store-dtype", type=str, default=None,
-                    help="candidate-store precision, float32 or bfloat16 (default: the "
-                         "build's meta.json store_dtype, else float32)")
+                    help="candidate-store precision, one of "
+                         f"{', '.join(store_lib.STORE_DTYPES)} (default: the build's "
+                         "meta.json store_dtype, else float32)")
+    ap.add_argument("--scale-granularity", choices=store_lib.SCALE_GRANULARITIES,
+                    default=None,
+                    help="quantization scale granularity: 'row' or 'bucket' (default: "
+                         "the build's meta.json scale_granularity, else row)")
+    ap.add_argument("--compute-dtype", choices=("float32", "int8"), default=None,
+                    help="filter contraction domain: 'int8' runs the integer-domain "
+                         "path for int8 stores (other stores run float32; default: the "
+                         "build's meta.json compute_dtype, else float32)")
     ap.add_argument("--beam", type=str, default=None,
                     help="beam for the leaf ranking: a scalar width or a comma schedule "
                          "'64,16' (one width per pruned level; default: the build's "
@@ -74,6 +85,9 @@ def main(argv=None):
     defaults = serving_defaults(load_meta(args.index))
     store_dtype = store_lib.validate_dtype(args.store_dtype or defaults["store_dtype"],
                                            flag="--store-dtype")
+    scale_granularity = store_lib.validate_granularity(
+        args.scale_granularity or defaults["scale_granularity"])
+    compute_dtype = args.compute_dtype or defaults["compute_dtype"]
     beam = defaults["beam"] if args.beam is None else parse_beam(args.beam)
     temperatures = (defaults["temperatures"] if args.temperatures is None
                     else parse_temperatures(args.temperatures))
@@ -85,13 +99,18 @@ def main(argv=None):
             print(f"prebuilt planes folded with temperatures {planes.temperatures} != "
                   f"serving {temps}; refolding")
             planes = planes_lib.from_lmi(index, temperatures)
-    store = store_lib.from_lmi(index, store_dtype)
+    store = store_lib.from_lmi(index, store_dtype, scale_granularity=scale_granularity)
+    compute = filtering._effective_compute(store, compute_dtype)
+    compute_str = (f"{compute} compute" if compute == compute_dtype
+                   else f"{compute} compute; {compute_dtype} asked for, which needs an int8 "
+                        "store")
     beam_str = ("exact" if beam is None
                 else ",".join(map(str, beam)) if isinstance(beam, tuple) else beam)
     temp_str = "1.0" if temperatures is None else ",".join(f"{t:g}" for t in temperatures)
     print(f"index: {index.n_objects} objects, {index.n_leaves} buckets "
           f"(depth {index.depth}, arities {'x'.join(map(str, index.arities))}), "
-          f"dim {index.dim}, store dtype {store_dtype}, beam {beam_str}, "
+          f"dim {index.dim}, store dtype {store_dtype} ({scale_granularity} scales, "
+          f"{compute_str}), beam {beam_str}, "
           f"temperatures {temp_str}, node eval {node_eval}"
           + (f", prebuilt planes {planes.nbytes() / 2**20:.1f} MB" if planes is not None
              else "") + f", on {device}")
@@ -107,7 +126,8 @@ def main(argv=None):
         return filtering.knn_query(index, q, k=args.k, stop_condition=args.stop,
                                    metric=args.metric, max_radius=args.radius, store=store,
                                    beam_width=beam, node_eval=node_eval,
-                                   temperatures=temperatures, planes=planes)
+                                   temperatures=temperatures, planes=planes,
+                                   compute_dtype=compute)
 
     def sync():
         if device.type == "cuda":

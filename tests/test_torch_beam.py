@@ -8,7 +8,6 @@ The CUDA kernel itself runs only on a card (tests/test_torch_cuda.py)."""
 import dataclasses
 import functools
 import math
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -21,15 +20,14 @@ from repro.core import lmi as jlmi
 from repro.core import planes as jplanes
 from repro.kernels.beam_eval import ops as jbe
 from repro.launch import build_index as jbuild
-from repro.launch import serve as jserve
 from repro_torch import index_io
 from repro_torch.core import filtering as pfilt
 from repro_torch.core import lmi as plmi
 from repro_torch.core import planes as pplanes
 from repro_torch.kernels.beam_eval import ops as pbe
 from repro_torch.launch import build_index as pbuild, serve as pserve
-from torch_parity import (E2E_ATOL, FAMILIES, LOGP_ATOL, TOL, np_, perturbed_queries,
-                          random_jax_index, random_params, to_port)
+from torch_parity import (E2E_ATOL, FAMILIES, LOGP_ATOL, TOL, jax_serve_answers, np_,
+                          perturbed_queries, random_jax_index, random_params, to_port)
 
 TEMPS3 = (1.0, 0.8, 0.7)
 
@@ -300,23 +298,6 @@ def test_depth3_beam_cli(tmp_path, capsys):
 # ------------------------------------ 9. serve follows the meta's defaults
 
 
-def _jax_serve_answers(monkeypatch, argv):
-    """Run JAX's serve CLI and return its answers in request order."""
-    captured = []
-
-    class Capturing(jserve.ServingHarness):
-        def run_until_drained(self):
-            responses = super().run_until_drained()
-            captured.extend(responses)
-            return responses
-
-    monkeypatch.setattr(jserve, "ServingHarness", Capturing)
-    monkeypatch.setattr(sys, "argv", ["serve", *argv])
-    jserve.main()
-    captured.sort(key=lambda r: r.rid)
-    return np.stack([r.ids for r in captured]), np.stack([r.distances for r in captured])
-
-
 @pytest.mark.parametrize("meta_key", ["temperatures", "beam_width"])
 def test_serve_follows_meta_defaults_like_jax(tmp_path, monkeypatch, meta_key):
     """A JAX-built index whose meta records temperatures (exact ranking)
@@ -328,7 +309,7 @@ def test_serve_follows_meta_defaults_like_jax(tmp_path, monkeypatch, meta_key):
     jbuild.save_index(str(tmp_path), jidx, n_sections=10, cutoff=50.0, **extra)
     argv = ["--index", str(tmp_path), "--n-queries", "24", "--batch", "8", "--k", "10",
             "--stop", "0.02"]
-    jids, jd = _jax_serve_answers(monkeypatch, argv + ["--serving", "serial"])
+    jids, jd = jax_serve_answers(monkeypatch, argv + ["--serving", "serial"])
     pids = pserve.main(argv + ["--device", "cpu"])
     # the port's serve prints distances nowhere: recompute them from its ids
     rng = np.random.default_rng(1)

@@ -45,13 +45,13 @@ def _runs_case(dev, seed=0, n_q=6, n_buckets=40, d=16, stop=60, cap=90):
     runs = lmi.BucketRuns(starts=offsets[order].int().to(dev),
                           lengths=torch.where(visited, sz, 0).int().to(dev))
     q = torch.from_numpy(rng.normal(size=(n_q, d)).astype(np.float32))
-    return q.to(dev), emb.to(dev), rows.to(dev), valid.to(dev), runs
+    return q.to(dev), emb.to(dev), rows.to(dev), valid.to(dev), runs, offsets.to(dev)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("metric", METRICS)
 def test_filter_kernels_match_plain(dev, metric, dtype):
-    q, emb, rows, valid, runs = _runs_case(dev, seed=13)
+    q, emb, rows, valid, runs, _off = _runs_case(dev, seed=13)
     data = emb.to(dtype)
     kd, ki = lf_ops.lmi_filter_topk(q, rows, valid, data, 70, metric=metric, runs=runs)
     rd, ri = lf_ref.lmi_filter_topk_ref(q, rows, valid, data, 70, metric=metric)
@@ -68,18 +68,127 @@ def test_filter_kernels_match_plain(dev, metric, dtype):
 
 
 def test_filter_kernel_counts_launches_and_checks_operands(dev):
-    q, emb, rows, valid, runs = _runs_case(dev, seed=3)
+    q, emb, rows, valid, runs, _off = _runs_case(dev, seed=3)
     before = dict(lf_ops.LAUNCHES)
     lf_ops.lmi_filter_topk(q, rows, valid, emb, 5, runs=runs)
     lf_ops.lmi_filter_range(q, rows, valid, emb, runs=runs)
+    lf_ops.lmi_filter_topk(q, rows, valid, emb, 5)  # no runs: the row gather
     assert lf_ops.LAUNCHES["lmi_filter_topk_desc"] == before["lmi_filter_topk_desc"] + 1
     assert lf_ops.LAUNCHES["lmi_filter_range_desc"] == before["lmi_filter_range_desc"] + 1
-    with pytest.raises(NotImplementedError, match="BucketRuns"):
-        lf_ops.lmi_filter_topk(q, rows, valid, emb, 5)
-    with pytest.raises(NotImplementedError, match="quantized"):
+    assert lf_ops.LAUNCHES["lmi_filter_topk_rows"] == before["lmi_filter_topk_rows"] + 1
+    with pytest.raises(TypeError, match="takes"):
         lf_ops.lmi_filter_topk(q, rows, valid, emb.to(torch.float16), 5, runs=runs)
     with pytest.raises(ValueError):
         lf_ops.lmi_filter_range(q.cpu(), rows, valid, emb, runs=runs)
+
+
+# (store dtype, scale granularity, compute dtype): every store tier
+TIERS = [("float32", "row", "float32"), ("bfloat16", "row", "float32"),
+         ("int8", "row", "float32"), ("int8", "row", "int8"), ("int8", "bucket", "float32"),
+         ("int8", "bucket", "int8"), ("float8_e4m3fn", "row", "float32"),
+         ("float8_e4m3fn", "bucket", "float32")]
+# the integer domain: the same exact integer dot on both sides, and an
+# epilogue whose float steps are rounded in the same order
+INT_TOL = 2e-5
+
+
+def _plain(q, rows, valid, st, compute, metric):
+    if compute == "int8":
+        return lf_ref.lmi_filter_int_ref(q, rows, valid, st.data, store_lib.row_scales(st),
+                                         st.norms, metric=metric)
+    return lf_ref.lmi_filter_ref(q, rows, valid, st.data, metric=metric,
+                                 scales=store_lib.row_scales(st))
+
+
+@pytest.mark.parametrize("form", ["desc", "rows"])
+@pytest.mark.parametrize("tier", TIERS, ids="-".join)
+@pytest.mark.parametrize("metric", METRICS)
+def test_filter_kernel_tiers_match_plain(dev, metric, tier, form):
+    """Every store tier, both gather forms (descriptors with the search's
+    runs; the (Q, C) rows without them), against the plain version on the
+    same card, through the filtering entry points."""
+    dtype, gran, compute = tier
+    q, emb, rows, valid, runs, offsets = _runs_case(dev, seed=17)
+    emb = emb * torch.linspace(0.1, 10, emb.shape[0], device=dev)[:, None]  # scales differ
+    st = store_lib.make_store(emb, torch.arange(emb.shape[0], device=dev), offsets, dtype,
+                              scale_granularity=gran)
+    r = runs if form == "desc" else None
+    tol = INT_TOL if compute == "int8" else TOL[metric]
+    want = _plain(q, rows, valid, st, compute, metric)
+    got = filtering.filter_range(st, q, rows, valid, metric=metric, runs=r, compute_dtype=compute)
+    fin = want < 1e37
+    assert torch.equal(got < 1e37, fin)
+    torch.testing.assert_close(got[fin], want[fin], rtol=tol, atol=tol)
+    kd, ki = filtering.filter_topk(st, q, rows, valid, 70, metric=metric, runs=r,
+                                   compute_dtype=compute)
+    rd, ri = torch.sort(want, dim=1, stable=True)
+    rd, ri = rd[:, :70], ri[:, :70].int()
+    fin = rd < 1e37
+    assert bool((~fin).any()), "the case must exhaust some top-70 slots"
+    torch.testing.assert_close(kd[fin], rd[fin], rtol=tol, atol=tol)
+    assert torch.equal(ki[fin], ri[fin])  # random data: no near ties
+    assert bool((ki[~fin] == -1).all()) and bool((kd[~fin] >= 1e37).all())
+
+
+def test_filter_tier_launch_counts(dev):
+    """Each tier counts under its own key: an int8 request over an fp8
+    store resolves to float32 compute and is counted so."""
+    q, emb, rows, valid, runs, offsets = _runs_case(dev, seed=5)
+    ids = torch.arange(emb.shape[0], device=dev)
+    i8 = store_lib.make_store(emb, ids, offsets, "int8", scale_granularity="bucket")
+    f8 = store_lib.make_store(emb, ids, offsets, "float8_e4m3fn", scale_granularity="bucket")
+    before = dict(lf_ops.TIER_LAUNCHES)
+    filtering.filter_topk(i8, q, rows, valid, 5, runs=runs, compute_dtype="int8")
+    filtering.filter_range(i8, q, rows, valid, compute_dtype="int8")
+    filtering.filter_topk(f8, q, rows, valid, 5, runs=runs, compute_dtype="int8")
+    filtering.filter_topk(f8, q, rows, valid, 5)
+    after = lf_ops.TIER_LAUNCHES
+    for key in ("lmi_filter_topk_desc:int8:run:int8", "lmi_filter_range_rows:int8:row:int8",
+                "lmi_filter_topk_desc:float8_e4m3fn:run:float32",
+                "lmi_filter_topk_rows:float8_e4m3fn:row:float32"):
+        assert after.get(key, 0) == before.get(key, 0) + 1, key
+
+
+def test_filter_kernel_checks_quant_operands(dev):
+    q, emb, rows, valid, runs, offsets = _runs_case(dev, seed=4)
+    st = store_lib.make_store(emb, torch.arange(emb.shape[0], device=dev), offsets, "int8")
+    qi, qs = lf_ops._quantize_queries(q)
+    with pytest.raises(ValueError, match="norms"):
+        lf_ops.launch(qi, st.data, valid, rows=rows, scales=st.scales, scale_mode="row",
+                      qscale=qs)
+    with pytest.raises(TypeError, match="scales"):
+        lf_ops.launch(q, st.data, valid, rows=rows, scales=st.scales.double(), scale_mode="row")
+    with pytest.raises(ValueError, match="scales"):
+        lf_ops.launch(q, st.data, valid, rows=rows, scales=st.scales[:-1], scale_mode="row")
+    with pytest.raises(ValueError, match="does not fit"):
+        lf_ops.launch(q, st.data, valid, rows=rows)
+    with pytest.raises(ValueError, match="descriptor"):
+        lf_ops.launch(q, st.data, valid, rows=rows, scales=st.scales, scale_mode="run")
+    with pytest.raises(ValueError, match="norms"):
+        lf_ops.launch(qi, st.data, valid, rows=rows, scales=st.scales, scale_mode="row",
+                      qscale=qs, norms=st.norms.cpu())
+    with pytest.raises(TypeError, match="rows"):
+        lf_ops.launch(q, st.data, valid, rows=rows.long(), scales=st.scales, scale_mode="row")
+
+
+@pytest.mark.parametrize("gran", ["row", "bucket"])
+@pytest.mark.parametrize("dtype", ["int8", "float8_e4m3fn"])
+def test_card_codes_equal_cpu(dev, dtype, gran):
+    """Quantized on the card, the codes, scales and norms equal the CPU's
+    byte for byte (the same ops, round half to even)."""
+    rng = np.random.default_rng(8)
+    emb = torch.from_numpy((rng.normal(size=(3000, 45)) * rng.uniform(0.01, 30, (3000, 1)))
+                           .astype(np.float32))
+    emb[7, :6] = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -2.5])
+    emb[8, :5] = torch.tensor([448.0, 1.0625, 1.1875, 2.0 ** -9 * 1.5, 2.0 ** -10])
+    offsets = torch.tensor([0, 0, 900, 900, 2500, 3000, 3000], dtype=torch.int32)
+    cpu = store_lib.quantize(emb, dtype, gran, offsets)
+    card = store_lib.quantize(emb.to(dev), dtype, gran, offsets.to(dev))
+    assert torch.equal(card[0].cpu().view(torch.uint8), cpu[0].view(torch.uint8))
+    assert torch.equal(card[1].cpu().view(torch.int32), cpu[1].view(torch.int32))
+    assert (card[2] is None) == (cpu[2] is None)
+    if cpu[2] is not None:
+        assert torch.equal(card[2].cpu(), cpu[2])
 
 
 @pytest.mark.parametrize("n,k,d", [(5000, 256, 45), (2000, 300, 45), (700, 9, 100),

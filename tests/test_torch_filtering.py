@@ -11,40 +11,15 @@ import pytest
 import torch
 
 from repro.core import filtering as jfilt
-from repro.core import lmi as jlmi
 from repro.core import store as jstore
 from repro.kernels.lmi_filter import ops as jops, ref as jref
 from repro_torch.core import filtering as pfilt
-from repro_torch.core import lmi as plmi
 from repro_torch.core import store as pstore
 from repro_torch.kernels.lmi_filter import ops as pops
-from torch_parity import E2E_ATOL, TOL, np_, perturbed_queries, to_port
+from torch_parity import (E2E_ATOL, TOL, np_, perturbed_queries, port_runs, runs_case,
+                          to_port)
 
 METRICS = ("euclidean", "sq_euclidean", "cosine")
-
-
-def _runs_case(seed=0, n_q=6, n_buckets=20, d=16, stop=30, cap=48):
-    """Queries, a CSR store and search outputs whose runs match rows /
-    valid, from a random leaf ranking: ragged candidate counts, an empty
-    bucket inside the visited stream, and queries with fewer than 40
-    candidates (exhausted top-40 slots)."""
-    rng = np.random.default_rng(seed)
-    sizes = rng.integers(0, 9, n_buckets).astype(np.int32)
-    sizes[4] = 0
-    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
-    emb = rng.normal(size=(int(offsets[-1]), d)).astype(np.float32)
-    logp = rng.normal(size=(n_q, n_buckets)).astype(np.float32)
-    order, visited, sz = jlmi.rank_visited_buckets(jnp.asarray(logp), jnp.asarray(sizes), stop)
-    rows, valid, _n = jlmi.extract_rows(order, visited, jnp.asarray(offsets), cap)
-    runs = jlmi.BucketRuns(starts=jnp.asarray(offsets)[order].astype(jnp.int32),
-                           lengths=jnp.where(visited, sz, 0).astype(jnp.int32))
-    q = rng.normal(size=(n_q, d)).astype(np.float32)
-    return q, emb, np.asarray(rows), np.asarray(valid), runs
-
-
-def _port_runs(runs):
-    return plmi.BucketRuns(starts=torch.tensor(np.asarray(runs.starts)),
-                           lengths=torch.tensor(np.asarray(runs.lengths)))
 
 
 def _stores(emb, dtype):
@@ -56,13 +31,13 @@ def _stores(emb, dtype):
 
 def test_run_descriptors_match_jax():
     for seed, cap in ((0, 48), (1, 30), (2, 7)):
-        _q, _e, _r, _v, runs = _runs_case(seed, cap=max(cap, 30))
+        _q, _e, _o, _r, _v, runs = runs_case(seed, cap=max(cap, 30))
         want = jops._run_descriptors(runs, cap)
-        got = pops._run_descriptors(_port_runs(runs), cap)
+        got = pops._run_descriptors(port_runs(runs), cap)
         for g, w in zip(got, want):
             assert g.dtype == torch.int32
             np.testing.assert_array_equal(np_(g), np.asarray(w))
-        for g, w in zip(pops._pad_descriptors(_port_runs(runs), cap, bq=8),
+        for g, w in zip(pops._pad_descriptors(port_runs(runs), cap, bq=8),
                         jops._pad_descriptors(runs, cap)):
             np.testing.assert_array_equal(np_(g), np.asarray(w))
 
@@ -84,7 +59,7 @@ def test_store_rows_bitwise_equal_jax(dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("metric", METRICS)
 def test_plain_filter_matches_jax_ref(metric, dtype):
-    q, emb, rows, valid, _runs = _runs_case(7)
+    q, emb, _o, rows, valid, _runs = runs_case(7)
     jdata, pdata = _stores(emb, dtype)
     want = np.asarray(jref.lmi_filter_ref(q, rows, valid, jdata, metric=metric))
     got = np_(pops.lmi_filter_range(torch.from_numpy(q), torch.from_numpy(rows),
@@ -110,13 +85,13 @@ def test_plain_filter_matches_jax_ref(metric, dtype):
 def test_plain_filter_matches_pallas_desc_kernel(kernel, dtype, metric):
     """The Pallas descriptor kernels (interpret mode) — what the CUDA
     kernels replace — agree with the port's plain filter."""
-    q, emb, rows, valid, runs = _runs_case(9)
+    q, emb, _o, rows, valid, runs = runs_case(9)
     jdata, pdata = _stores(emb, dtype)
     args = (torch.from_numpy(q), torch.from_numpy(rows), torch.from_numpy(valid), pdata)
     if kernel == "range":
         want = np.asarray(jops.lmi_filter_range(q, rows, valid, jdata, metric=metric,
                                                 interpret=True, runs=runs))
-        got = np_(pops.lmi_filter_range(*args, metric=metric, runs=_port_runs(runs)))
+        got = np_(pops.lmi_filter_range(*args, metric=metric, runs=port_runs(runs)))
         np.testing.assert_array_equal(got >= 1e37, want >= 1e37)
         fin = want < 1e37
         np.testing.assert_allclose(got[fin], want[fin], rtol=TOL[metric], atol=TOL[metric])
@@ -124,7 +99,7 @@ def test_plain_filter_matches_pallas_desc_kernel(kernel, dtype, metric):
     wd, wi = (np.asarray(a) for a in jops.lmi_filter_topk(
         q, rows, valid, jdata, 40, metric=metric, interpret=True, runs=runs))
     gd, gi = (np_(a) for a in pops.lmi_filter_topk(*args, 40, metric=metric,
-                                                    runs=_port_runs(runs)))
+                                                    runs=port_runs(runs)))
     fin = wd < 1e37
     assert (wi[~fin] == -1).all() and (~fin).any()
     np.testing.assert_array_equal(gd >= 1e37, ~fin)
@@ -217,9 +192,9 @@ def test_store_api(small_lmi):
         pstore.validate_dtype("float16")
     with pytest.raises(ValueError, match="granularity"):
         pstore.validate_granularity("tile")
-    for dtype in pstore.QUANTIZED_DTYPES:
-        with pytest.raises(NotImplementedError, match="next slice"):
-            pstore.from_lmi(pidx, dtype)
+    for dtype in pstore.QUANTIZED_DTYPES:  # built since the quantized slice
+        qst = pstore.from_lmi(pidx, dtype)
+        assert qst.dtype == dtype and pstore.row_scales(qst).shape == (pidx.n_objects,)
     import dataclasses
 
     stale = dataclasses.replace(pidx, index_revision=1)

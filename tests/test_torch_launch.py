@@ -55,8 +55,9 @@ def test_serve_cli_on_a_jax_built_index(tmp_path, monkeypatch, capsys):
 
 
 def test_cli_rejects_what_the_slice_lacks(tmp_path):
-    with pytest.raises(NotImplementedError, match="next slice"):
-        pbuild.main(TINY + ["--store-dtype", "int8", "--out", str(tmp_path)])
+    with pytest.raises(ValueError, match="granularity"):
+        pbuild.main(TINY + ["--store-dtype", "int8", "--scale-granularity", "tile",
+                            "--out", str(tmp_path)])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pbuild.main(TINY + ["--model", "gmm", "--out", str(tmp_path)])
     with pytest.raises(ValueError, match="store-dtype"):

@@ -8,6 +8,7 @@ its kernels).
 from __future__ import annotations
 
 import math
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -15,6 +16,8 @@ import numpy as np
 import torch
 
 from repro.core import lmi as jlmi
+from repro.launch import serve as jserve
+from repro_torch.core import lmi as plmi
 from repro_torch.index_io import index_from_numpy
 
 # the JAX suite's own tolerances (tests/test_lmi_filter.py): norm
@@ -79,3 +82,47 @@ def perturbed_queries(emb, n: int, seed: int = 1, scale: float = 0.01) -> np.nda
     e = np.asarray(emb)
     q = e[rng.integers(0, e.shape[0], n)]
     return np.clip(q + rng.normal(scale=scale, size=q.shape), 0, 1).astype(np.float32)
+
+
+def runs_case(seed=0, n_q=6, n_buckets=20, d=16, stop=30, cap=48):
+    """Queries, a CSR store and JAX search outputs whose runs match rows /
+    valid, from a random leaf ranking: -> (q, emb, offsets, rows, valid,
+    runs). Ragged candidate counts, an empty bucket inside the visited
+    stream, and queries with fewer than 40 candidates (exhausted top-40
+    slots); each run is one bucket, as the search emits them."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(0, 9, n_buckets).astype(np.int32)
+    sizes[4] = 0
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+    emb = rng.normal(size=(int(offsets[-1]), d)).astype(np.float32)
+    logp = rng.normal(size=(n_q, n_buckets)).astype(np.float32)
+    order, visited, sz = jlmi.rank_visited_buckets(jnp.asarray(logp), jnp.asarray(sizes), stop)
+    rows, valid, _n = jlmi.extract_rows(order, visited, jnp.asarray(offsets), cap)
+    runs = jlmi.BucketRuns(starts=jnp.asarray(offsets)[order].astype(jnp.int32),
+                           lengths=jnp.where(visited, sz, 0).astype(jnp.int32))
+    q = rng.normal(size=(n_q, d)).astype(np.float32)
+    return q, emb, offsets, np.asarray(rows), np.asarray(valid), runs
+
+
+def port_runs(runs):
+    """JAX `BucketRuns` as the port's."""
+    return plmi.BucketRuns(starts=torch.tensor(np.asarray(runs.starts)),
+                           lengths=torch.tensor(np.asarray(runs.lengths)))
+
+
+def jax_serve_answers(monkeypatch, argv):
+    """Run JAX's serve CLI and return its answers (ids, distances) in
+    request order."""
+    captured = []
+
+    class Capturing(jserve.ServingHarness):
+        def run_until_drained(self):
+            responses = super().run_until_drained()
+            captured.extend(responses)
+            return responses
+
+    monkeypatch.setattr(jserve, "ServingHarness", Capturing)
+    monkeypatch.setattr(sys, "argv", ["serve", *argv])
+    jserve.main()
+    captured.sort(key=lambda r: r.rid)
+    return np.stack([r.ids for r in captured]), np.stack([r.distances for r in captured])
