@@ -2,7 +2,7 @@
 """Chip smoke test of the PyTorch / CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py            # everything, on one CUDA card
-    python3 chip_smoke.py --quick    # build + check the kernels at small shapes only
+    python3 chip_smoke.py --quick    # 20k chains, no CLIs, the LM at 2 layers
 
 Phases, each of which fails the run (non-zero exit) if anything is off:
 
@@ -53,7 +53,29 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
     or bucket scales, int8 compute on the int8 stores) in both gather
     forms, 3 metrics; 518,576 x 256 x 45 for the assignment; 32,768
     (query, prefix) pairs over 4,096 nodes of arity 64 for beam_eval, 3
-    families), with CUDA-event times and the bound of each.
+    families), with CUDA-event times and the bound of each; and the
+    kernels of the LM and recsys paths at their callers' shapes: flash
+    attention at stablelm-1.6b's prefill (4 x 32 heads x 4,096 into a
+    4,160-position cache, dh 64, bf16, causal) and decode (one query row a
+    head over the cache) and at starcoder2-15b's GQA prefill (48 / 4 heads,
+    4,096, dh 128); pairwise_l2 at the brute-force shape (the 512 queries x
+    every embedding, float32 and bfloat16); embedding_bag at MIND's (a
+    1,000,000 x 64 table, 4,096 weighted histories of 50 with repeated
+    items, through ``recsys.bag_lookup(use_kernel=True)``). Each with its
+    plain version's time, the PyTorch library call's (SDPA, ``torch.cdist``,
+    ``F.embedding_bag``) and its bound;
+ 6. LM serving: ``repro.configs.stablelm_1_6b.make_full()`` (24 layers,
+    1.64 B parameters, bf16, random weights from a seed) through the
+    port's entry points: ``prefill`` of 4 x 4,096 tokens
+    (``lm_synthetic_batch``) into a 4,160-position cache, 64 greedy
+    ``decode_step``s and a cache-free ``forward``. The flash kernel's count
+    is set to 0 before and read after each call and must be one launch a
+    layer. The kernel path is held against the plain path (the same
+    weights, every attention through the kernel's plain version) on the
+    prefill's last logits and on every teacher-forced decode step, with a
+    tie-aware top-1 check, and decode against the forward (the last 16
+    prompt positions replayed). Prefill and decode tokens/s and ms are
+    printed.
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or run
@@ -83,10 +105,11 @@ N_FAMILIES = 200
 SEED = 0
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate, non-tensor-core float32
-# rate, dense int8 tensor-core rate
+# rate, dense int8 and bfloat16 tensor-core rates
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 INT8_OP_PER_S = 1979e12
+BF16_FLOP_PER_S = 989e12
 
 # |kernel - plain| limits, by metric: the kernels use the norm
 # decomposition, the plain version the direct difference; Euclidean near
@@ -120,6 +143,28 @@ STORE_TIERS = (("float32", "row", "float32"), ("bfloat16", "row", "float32"),
 INT_TOL = 2e-5
 MAIN_KERNELS = ("kmeans_assign", "lmi_filter_topk_desc", "lmi_filter_range_desc")
 D3_KERNELS = ("kmeans_assign", "lmi_filter_topk_desc", "beam_eval")
+
+# the LM serving phase: repro.configs.stablelm_1_6b.make_full() (24 layers,
+# d_model 2048, 32 heads of 64, bfloat16) on 4 prompts of train_4k's 4,096
+# tokens, a cache of 4,160 positions, 64 greedy decode steps; the last 16
+# prompt positions are replayed as decode steps against the forward
+LM = dict(batch=4, prompt=4096, max_len=4160, steps=64, replay=16)
+# bfloat16 logits of two paths that round their activations at different
+# places (kernel vs plain attention; M = 4 vs M = 16,384 products) are held
+# within this share of the largest logit: about four bfloat16 steps, the
+# bound of the port's CPU test against JAX in bfloat16
+LM_LOGIT_TOL = 2.0 ** -5
+# flash kernel vs its plain version, both rounding a float32 result to
+# bfloat16: one bfloat16 step apart at most (2**-7 relative)
+FLASH_TOL = dict(rtol=2.0 ** -7, atol=1e-3)
+# pairwise_l2: the JAX suite's bound (norm decomposition vs direct
+# difference, float32 sums); embedding_bag: float32 sums of 50 rows in
+# another order
+PW_TOL = dict(rtol=1e-4, atol=1e-3)
+EB_TOL = dict(rtol=1e-5, atol=1e-5)
+# repro.configs.mind.make_full(): a 1,000,000-item table of 64 floats,
+# histories of 50 items, and a batch of 4,096 users
+MIND = dict(items=1_000_000, dim=64, hist=50, batch=4096)
 
 
 def fail(msg: str) -> None:
@@ -235,10 +280,14 @@ def errors(got, want):
 def counters():
     """The launch counts of every kernel wrapper of the port."""
     from repro_torch.kernels.beam_eval import ops as be_ops
+    from repro_torch.kernels.embedding_bag import ops as eb_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.kmeans_assign import ops as ka_ops
     from repro_torch.kernels.lmi_filter import ops as lf_ops
+    from repro_torch.kernels.pairwise_l2 import ops as pw_ops
 
-    return (ka_ops.LAUNCHES, lf_ops.LAUNCHES, lf_ops.TIER_LAUNCHES, be_ops.LAUNCHES)
+    return (ka_ops.LAUNCHES, lf_ops.LAUNCHES, lf_ops.TIER_LAUNCHES, be_ops.LAUNCHES,
+            fa_ops.LAUNCHES, pw_ops.LAUNCHES, eb_ops.LAUNCHES)
 
 
 def reset() -> None:
@@ -625,6 +674,290 @@ def quantized_phase(torch, np, index, cpu_index, queries, search, bf, shapes):
     return records, phase_launches
 
 
+def held_close(got, want, rtol: float, atol: float, what: str) -> float:
+    """max |got - want|, after checking |got - want| <= atol + rtol |want|
+    everywhere (float32 comparison)."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    check(bool((diff <= atol + rtol * want.abs()).all()),
+          f"{what}: kernel differs from its plain version (max |err| {float(diff.max())})")
+    return float(diff.max())
+
+
+def top1_agree(torch, got, want, err: float) -> tuple:
+    """(rows whose top-1 token is the same, rows where it differs but the
+    plain path's top-1 / top-2 margin is within ``err``, rows that differ
+    beyond it)."""
+    top2 = torch.topk(want, 2, dim=-1).values
+    tie = (top2[:, 0] - top2[:, 1]) <= err
+    same = got.argmax(-1) == want.argmax(-1)
+    return int(same.sum()), int((~same & tie).sum()), int((~same & ~tie).sum())
+
+
+def lm_phase(torch, np, dev, quick: bool):
+    """Phase 6: serve stablelm-1.6b through the port's entry points
+    (prefill, greedy decode_step, a cache-free forward), the flash kernel's
+    count set to 0 before and read after each call; hold the kernel path
+    against the plain path on the same weights, and decode against the
+    forward. -> (record, the phase's flash launches)."""
+    import dataclasses
+    from unittest import mock
+
+    from repro_torch.configs import stablelm_1_6b
+    from repro_torch.data.pipeline import lm_synthetic_batch
+    from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
+    from repro_torch.models import transformer as T
+
+    cfg = stablelm_1_6b.make_full()
+    if quick:
+        cfg = dataclasses.replace(cfg, n_layers=2)
+    n_layers, B, P, S = cfg.n_layers, LM["batch"], LM["prompt"], LM["max_len"]
+    counts = fa_ops.LAUNCHES
+
+    def launched(fn):
+        """(fn's result, flash launches during it, its seconds)"""
+        counts["flash_attention"] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, counts["flash_attention"], time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    model = T.init_params(SEED, cfg, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    tokens = torch.from_numpy(lm_synthetic_batch(cfg.vocab_size, B, P)(SEED, 0)["tokens"]).to(dev)
+    reset()
+    _, n_warm, _ = launched(lambda: T.prefill(cfg, model, tokens, S, full_logits=False))
+    (logits, cache), n_pre, t_pre = launched(
+        lambda: T.prefill(cfg, model, tokens, S, full_logits=False))
+    check(n_warm == n_pre == n_layers, f"prefill launched the flash kernel {n_pre} times, "
+                                       f"not once per layer ({n_layers})")
+    check(tuple(logits.shape) == (B, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
+          "prefill logits: shape or a non-finite value")
+
+    # greedy decoding, the kernel's count read after every step
+    tok = logits.argmax(-1, keepdim=True)
+    gen, step_logits, per_step = [tok], [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LM["steps"]):
+        counts["flash_attention"] = 0
+        before = cache
+        lg, cache = T.decode_step(cfg, model, tok, cache)
+        per_step.append(counts["flash_attention"])
+        step_logits.append(lg)
+        tok = lg.argmax(-1, keepdim=True)
+        gen.append(tok)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    # the last step again (it rewrites the same cache position): back to
+    # back, and device only (queued behind a sleep), for the idle share
+    step_host = time_ms(torch, lambda: T.decode_step(cfg, model, gen[-2], before), 10)
+    step_dev = device_ms(torch, lambda: T.decode_step(cfg, model, gen[-2], before), 10)
+    del before
+    check(all(n == n_layers for n in per_step),
+          f"decode steps launched the flash kernel {sorted(set(per_step))} times, not {n_layers}")
+    check(cache.length == P + LM["steps"], "the cache did not advance one position a step")
+    check(all(bool(torch.isfinite(lg).all()) for lg in step_logits), "non-finite decode logits")
+    del cache
+
+    (full, _), n_fwd, t_fwd = launched(lambda: T.forward(cfg, model, tokens))
+    check(n_fwd == n_layers, f"forward launched the flash kernel {n_fwd} times")
+    check(tuple(full.shape) == (B, P, cfg.vocab_size) and bool(torch.isfinite(full).all()),
+          "forward logits: shape or a non-finite value")
+
+    def held(got, want, what):
+        """max |got - want|, checked against LM_LOGIT_TOL of want's largest
+        logit, and the tie-aware top-1 agreement."""
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        agree = top1_agree(torch, got, want, err)
+        check(err <= LM_LOGIT_TOL * scale,
+              f"{what}: |logits diff| {err} > {LM_LOGIT_TOL} x {scale}")
+        check(agree[2] == 0, f"{what}: top-1 differs beyond the error on {agree[2]} rows")
+        return err, scale, agree
+
+    fwd_err = held(logits, full[:, -1], "prefill vs forward, last position")
+
+    # the plain path on the same weights: every attention through the
+    # kernel's plain version; prefill, then teacher-forced decoding on the
+    # kernel path's tokens
+    def plain_flash(q, k, v, causal=True, q_offset=None, kv_len=None):
+        return fa_ref.flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset,
+                                          kv_len=kv_len)
+
+    with mock.patch.object(fa_ops, "flash_attention", plain_flash):
+        (plogits, pcache), n_plain, t_plain = launched(
+            lambda: T.prefill(cfg, model, tokens, S, full_logits=False))
+        check(n_plain == 0, "the plain path launched the flash kernel")
+        plain_errs = [held(logits, plogits, "prefill, kernel vs plain")]
+        for i in range(LM["steps"]):
+            plg, pcache = T.decode_step(cfg, model, gen[i], pcache)
+            plain_errs.append(held(step_logits[i], plg, f"decode step {i}, kernel vs plain"))
+    del pcache, plogits
+
+    # decode against the forward: the last `replay` prompt positions again,
+    # as decode steps after a prefill of the rest
+    r = LM["replay"]
+    (c_logits, ccache), _, _ = launched(
+        lambda: T.prefill(cfg, model, tokens[:, :P - r], S, full_logits=False))
+    replay_errs = [held(c_logits, full[:, P - r - 1], "prefill vs forward")]
+    for i in range(r):
+        lg, ccache = T.decode_step(cfg, model, tokens[:, P - r + i:P - r + i + 1], ccache)
+        replay_errs.append(held(lg, full[:, P - r + i], f"replayed step {i} vs forward"))
+    del ccache, full
+
+    gen_tokens = torch.cat(gen, dim=1)
+    rec = dict(
+        config=cfg.name, layers=n_layers, params=cfg.param_count(), batch=B, prompt=P,
+        max_len=S, steps=LM["steps"], init_s=t_init, prefill_ms=t_pre * 1e3,
+        prefill_tok_s=B * P / t_pre, plain_prefill_ms=t_plain * 1e3,
+        decode_ms_per_step=t_dec * 1e3 / LM["steps"], decode_tok_s=B * LM["steps"] / t_dec,
+        decode_step_ms=step_host, decode_step_device_ms=step_dev,
+        forward_ms=t_fwd * 1e3,
+        launches=dict(prefill=n_pre, forward=n_fwd, decode_per_step=per_step[0]),
+        kernel_vs_plain_max_err=max(e[0] for e in plain_errs),
+        kernel_vs_plain_logit_scale=max(e[1] for e in plain_errs),
+        kernel_vs_plain_top1=[sum(e[2][j] for e in plain_errs) for j in range(3)],
+        decode_vs_forward_max_err=max(e[0] for e in replay_errs),
+        prefill_vs_forward_err=fwd_err[0],
+        distinct_generated=int(gen_tokens.unique().numel()),
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"LM {cfg.name} ({n_layers} layers, {cfg.param_count():,} params, bf16, random "
+          f"weights, seed {SEED}): init {t_init:.2f}s | prefill {B}x{P} into {S}: "
+          f"{t_pre * 1e3:.1f} ms = {B * P / t_pre:,.0f} tokens/s (plain path "
+          f"{t_plain * 1e3:.1f} ms) | decode {LM['steps']} greedy steps: "
+          f"{rec['decode_ms_per_step']:.2f} ms/step = {rec['decode_tok_s']:,.0f} tokens/s (last "
+          f"step {step_host:.2f} ms back to back, {step_dev:.2f} device only: idle share "
+          f"{1.0 - step_dev / step_host:.3f}) | "
+          f"forward {B}x{P}: {t_fwd * 1e3:.1f} ms | flash launches: prefill {n_pre}, forward "
+          f"{n_fwd}, every decode step {per_step[0]}", flush=True)
+    print(f"LM checks: kernel vs plain (prefill + {LM['steps']} teacher-forced steps) max "
+          f"|dlogit| {rec['kernel_vs_plain_max_err']:.4g} of max |logit| "
+          f"{rec['kernel_vs_plain_logit_scale']:.4g} (limit x{LM_LOGIT_TOL}), top-1 same / "
+          f"tied within the error / differ {rec['kernel_vs_plain_top1']} | prefill vs forward "
+          f"{fwd_err[0]:.4g} | {r} replayed decode steps vs forward max "
+          f"{rec['decode_vs_forward_max_err']:.4g} "
+          f"| {rec['distinct_generated']} distinct generated tokens | peak "
+          f"{rec['peak_gb']:.1f} GB", flush=True)
+    return rec, n_pre + n_fwd + sum(per_step)
+
+
+def new_kernels_phase(torch, np, dev, queries, embeddings):
+    """Phase 5, the kernels of the LM and recsys paths at the shapes their
+    callers give them: flash attention at stablelm-1.6b's prefill and decode and at
+    starcoder2-15b's GQA prefill; pairwise_l2 at the main path's
+    brute-force shape (512 queries x every embedding), float32 and
+    bfloat16; embedding_bag at MIND's. Each entry point is first called as
+    its caller would with the counts at 0 (the launches reported), then
+    held against its plain version and timed. -> {name: record}."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.embedding_bag import ops as eb_ops, ref as eb_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
+    from repro_torch.kernels.pairwise_l2 import ops as pw_ops, ref as pw_ref
+    from repro_torch.models import recsys
+
+    rng = np.random.default_rng(11)
+    out = {}
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev, dtype)
+
+    def flash_case(name, b, hq, hkv, t, s, dh, causal, q_offset, kv_len):
+        q = randn(b, t, hq, dh).transpose(1, 2)  # the projections' layout
+        k, v = randn(b, hkv, s, dh), randn(b, hkv, s, dh)
+        kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
+        err = held_close(fa_ops.flash_attention(q, k, v, **kw),
+                         fa_ref.flash_attention_ref(q, k, v, **kw), **FLASH_TOL,
+                         what=f"flash_attention {name}")
+        ms = time_ms(torch, lambda: fa_ops.flash_attention(q, k, v, **kw), 10)
+        plain_ms = time_ms(torch, lambda: fa_ref.flash_attention_ref(q, k, v, **kw), 3)
+        kq, vq = k[:, :, :kv_len], v[:, :, :kv_len]
+        lib = dict(is_causal=causal and t == kv_len, enable_gqa=hq != hkv)
+        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(q, kq, vq, **lib), 10)
+        # visible (query, key) pairs: this run's work, tiles skipped or not
+        if causal:
+            pairs = sum(min(kv_len, q_offset + i + 1) for i in range(t))
+        else:
+            pairs = t * kv_len
+        n_flops = 4.0 * b * hq * dh * pairs
+        n_bytes = 2 * (2 * q.numel() + 2 * b * hkv * kv_len * dh)  # q, out; k, v valid prefix
+        bnd = bound_ms(n_bytes, n_flops, BF16_FLOP_PER_S)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd[0],
+                         bound_by=bnd[1], max_abs_err=err, shape=[b, hq, hkv, t, s, dh])
+        print(f"  flash_attention {name} B={b} Hq={hq} Hkv={hkv} T={t} S={s} (kv_len {kv_len}) "
+              f"dh={dh} bf16: {ms:.4f} ms (plain {plain_ms:.3f}, SDPA {lib_ms:.4f}, bound "
+              f"{bnd[0]:.4f} by {bnd[1]}) err {err:.2e}", flush=True)
+
+    B, P, S = LM["batch"], LM["prompt"], LM["max_len"]
+    flash_case("stablelm_prefill", B, 32, 32, P, S, 64, True, 0, P)
+    flash_case("stablelm_decode", B, 32, 32, 1, S, 64, False, S - 1, S)
+    flash_case("starcoder2_gqa_prefill", 1, 48, 4, P, P, 128, True, 0, P)
+
+    # pairwise_l2: the brute-force distance matrix of the main path's queries
+    x, y = queries[:BATCH].contiguous(), embeddings.contiguous()
+    for dtype in (torch.float32, torch.bfloat16):
+        xd, yd = x.to(dtype), y.to(dtype)
+        reset()
+        got = pw_ops.pairwise_l2(xd, yd)
+        torch.cuda.synchronize()
+        n_launch = pw_ops.LAUNCHES["pairwise_l2"]
+        check(n_launch == 1, "pairwise_l2 did not launch its kernel")
+        err = held_close(got, pw_ref.pairwise_l2_ref(xd, yd), **PW_TOL,
+                         what=f"pairwise_l2 {dtype}")
+        ms = time_ms(torch, lambda: pw_ops.pairwise_l2(xd, yd), 10)
+        plain_ms = time_ms(torch, lambda: pw_ref.pairwise_l2_ref(xd, yd), 2)
+        lib_ms = time_ms(torch, lambda: torch.cdist(xd.float(), yd.float()) ** 2, 10)
+        n, m, d = xd.shape[0], yd.shape[0], xd.shape[1]
+        n_bytes = (n + m) * d * xd.element_size() + n * m * 4
+        n_flops = 2.0 * n * m * d + 2.0 * (n + m) * d + 3.0 * n * m
+        rate = F32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S
+        bnd = bound_ms(n_bytes, n_flops, rate)
+        tag = str(dtype).replace("torch.", "")
+        out[f"pairwise_l2_{tag}"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                          bound_ms=bnd[0], bound_by=bnd[1], max_abs_err=err,
+                                          launches=n_launch, shape=[n, m, d])
+        print(f"  pairwise_l2 {n}x{m}x{d} {tag}: {ms:.4f} ms (plain {plain_ms:.3f}, cdist**2 "
+              f"{lib_ms:.4f}, bound {bnd[0]:.4f} by {bnd[1]}) err {err:.2e}, out "
+              f"{n * m * 4 / 1e9:.3f} GB", flush=True)
+        del got
+
+    # embedding_bag: MIND's history bags, through recsys.bag_lookup
+    items = MIND["items"]
+    table = recsys.init_tables(SEED, (items,), MIND["dim"], device=dev)
+    ids_np = rng.integers(0, items, (MIND["batch"], MIND["hist"])).astype(np.int32)
+    ids_np[:, 1] = ids_np[:, 0]  # a repeated item in every history
+    ids_np[::7, :10] = ids_np[::7, 10:11]  # and some histories with 11 copies of one
+    ids = torch.from_numpy(ids_np).to(dev)
+    w = torch.from_numpy(rng.uniform(0.1, 2.0, ids_np.shape).astype(np.float32)).to(dev)
+    reset()
+    got = recsys.bag_lookup(table, ids, w, use_kernel=True)
+    torch.cuda.synchronize()
+    n_launch = eb_ops.LAUNCHES["embedding_bag"]
+    check(n_launch == 1, "bag_lookup(use_kernel=True) did not launch embedding_bag")
+    err = held_close(got, eb_ref.embedding_bag_ref(table, ids, w), **EB_TOL,
+                     what="embedding_bag")
+    ms = time_ms(torch, lambda: eb_ops.embedding_bag(table, ids, w), 20)
+    plain_ms = time_ms(torch, lambda: eb_ref.embedding_bag_ref(table, ids, w), 5)
+    lids = ids.long()
+    lib_ms = time_ms(torch, lambda: F.embedding_bag(lids, table, per_sample_weights=w,
+                                                    mode="sum"), 20)
+    n_rows = int(ids.unique().numel())
+    n_bytes = n_rows * MIND["dim"] * 4 + ids.numel() * 8 + MIND["batch"] * MIND["dim"] * 4
+    bnd = bound_ms(n_bytes, 2.0 * ids.numel() * MIND["dim"])
+    out["embedding_bag"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd[0],
+                                bound_by=bnd[1], max_abs_err=err, launches=n_launch,
+                                distinct_rows=n_rows, shape=[items, MIND["dim"], MIND["batch"],
+                                                             MIND["hist"]])
+    print(f"  embedding_bag {items}x{MIND['dim']} f32, {MIND['batch']} bags of {MIND['hist']} "
+          f"(weighted, {n_rows} distinct rows): {ms:.4f} ms (plain {plain_ms:.3f}, "
+          f"F.embedding_bag {lib_ms:.4f}, bound {bnd[0]:.4f} by {bnd[1]}) err {err:.2e}",
+          flush=True)
+    return out
+
 
 def main() -> None:
     quick = "--quick" in sys.argv[1:]
@@ -907,6 +1240,13 @@ def main() -> None:
           f"label swaps {int(swapped.sum())}",
           flush=True)
 
+    # ---- 5 (continued). flash attention, pairwise_l2 and embedding_bag at
+    # their callers' shapes
+    new_records = new_kernels_phase(torch, np, dev, queries, index.sorted_embeddings)
+
+    # ---- 6. serve stablelm-1.6b: prefill, greedy decode, forward
+    lm_rec, lm_launches = lm_phase(torch, np, dev, quick)
+
     def entry(name, replaces, rec, n_launch, **extra):
         ms, plain, (bms, by), err, rel = rec
         return {"name": name, "route": "cuda", "source": lf_src, "replaces": replaces,
@@ -971,6 +1311,30 @@ def main() -> None:
         "launches": d3_launches["beam_eval"], "max_abs_err": kb["max_abs_err"],
         "ms": kb["ms"], "plain_ms": kb["plain_ms"], "bound_ms": kb["bound_ms"],
         "bound_by": kb["bound_by"], "library_ms": None, "families": beam_records})
+    fp, pre = "src/repro/kernels", "src/repro_torch/kernels"
+    fa = new_records["stablelm_prefill"]
+    out["kernels"].append({
+        "name": "flash_attention", "route": "cuda",
+        "source": f"{pre}/flash_attention/csrc/flash_attention.cu",
+        "replaces": f"{fp}/flash_attention/kernel.py:75", "launches": lm_launches,
+        **{key: fa[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")},
+        "per_layer_at": "stablelm-1.6b prefill", "decode": new_records["stablelm_decode"],
+        "gqa": new_records["starcoder2_gqa_prefill"], "lm": lm_rec})
+    pw = new_records["pairwise_l2_float32"]
+    out["kernels"].append({
+        "name": "pairwise_l2", "route": "cuda", "source": f"{pre}/pairwise_l2/csrc/pairwise_l2.cu",
+        "replaces": f"{fp}/pairwise_l2/kernel.py:44",
+        **{key: pw[key] for key in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms")},
+        "bfloat16": new_records["pairwise_l2_bfloat16"]})
+    eb = new_records["embedding_bag"]
+    out["kernels"].append({
+        "name": "embedding_bag", "route": "cuda",
+        "source": f"{pre}/embedding_bag/csrc/embedding_bag.cu",
+        "replaces": f"{fp}/embedding_bag/kernel.py:60",
+        **{key: eb[key] for key in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms", "distinct_rows")}})
     print(f"card: {smi}")
     print(json.dumps(out))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -34,6 +34,9 @@ SOURCES = {
     "lmi_filter": _PKG / "lmi_filter" / "csrc" / "lmi_filter.cu",
     "kmeans_assign": _PKG / "kmeans_assign" / "csrc" / "kmeans_assign.cu",
     "beam_eval": _PKG / "beam_eval" / "csrc" / "beam_eval.cu",
+    "flash_attention": _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
+    "pairwise_l2": _PKG / "pairwise_l2" / "csrc" / "pairwise_l2.cu",
+    "embedding_bag": _PKG / "embedding_bag" / "csrc" / "embedding_bag.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

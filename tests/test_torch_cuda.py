@@ -13,8 +13,11 @@ import torch
 
 from repro_torch.core import filtering, lmi, planes as planes_lib, store as store_lib
 from repro_torch.kernels.beam_eval import ops as be_ops, ref as be_ref
+from repro_torch.kernels.embedding_bag import ops as eb_ops, ref as eb_ref
+from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
 from repro_torch.kernels.kmeans_assign import ops as ka_ops, ref as ka_ref
 from repro_torch.kernels.lmi_filter import ops as lf_ops, ref as lf_ref
+from repro_torch.kernels.pairwise_l2 import ops as pw_ops, ref as pw_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -317,3 +320,143 @@ def test_segmented_beam_on_card_matches_cpu(dev):
     cpu = index.to("cpu")
     cids, cd = filtering.knn_query(cpu, q, **kw)
     assert filtering.knn_agree(ids.cpu(), d.cpu(), cids, cd, atol=2e-3).mean() >= 0.95
+
+
+# ---------------------------------------------------------- flash_attention
+# (B, Hq, Hkv, T, S, dh, causal, q_offset, kv_len); None = the TPU kernel's
+# own (S - T, S). Ragged T and S throughout: the kernel masks its edges.
+FLASH_CASES = [
+    (2, 4, 4, 200, 200, 64, True, None, None),  # MHA, cache-free forward
+    (1, 8, 2, 130, 300, 128, True, None, None),  # GQA 4:1, queries at the end
+    (2, 4, 4, 100, 160, 64, True, 0, 100),  # prefill into a longer cache
+    (3, 8, 2, 1, 160, 128, False, 76, 77),  # a decode step
+    (1, 4, 2, 5, 96, 64, False, 40, 45),  # a short block (T <= 16)
+    (2, 4, 4, 1, 3000, 64, False, 2000, 2001),  # decode over a long cache: 32 kv splits
+    (1, 8, 2, 12, 1000, 128, True, 900, 1000),  # a causal short block, split
+    (1, 2, 2, 64, 96, 96, False, None, None),  # non-causal, dh zero-padded to 128
+]
+# float32: the kernel and the plain version sum in another order (JAX's
+# flash tolerance). bfloat16: both round a float32 result to bfloat16, so
+# a last-bit difference before rounding can move the output by one
+# bfloat16 step (2**-7 relative at worst).
+FLASH_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4), torch.bfloat16: dict(rtol=2**-7, atol=1e-3)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_flash_kernel_matches_plain(dev, case, dtype):
+    B, Hq, Hkv, T, S, dh, causal, q_offset, kv_len = case
+    rng = np.random.default_rng(T * 7 + S)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev, dtype)
+
+    q = randn(B, T, Hq, dh).transpose(1, 2)  # strided, as the transformer's projections
+    k, v = randn(B, Hkv, S, dh), randn(B, Hkv, S, dh)
+    got = fa_ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len)
+    want = fa_ref.flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len)
+    assert got.shape == (B, Hq, T, dh) and got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+
+
+def test_flash_kernel_counts_launches_and_checks_operands(dev):
+    q = torch.randn(1, 4, 32, 64, device=dev)
+    kv = torch.randn(1, 2, 32, 64, device=dev)
+    before = fa_ops.LAUNCHES["flash_attention"]
+    fa_ops.flash_attention(q, kv, kv)
+    assert fa_ops.LAUNCHES["flash_attention"] == before + 1
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa_ops.flash_attention(q.half(), kv.half(), kv.half())
+    with pytest.raises(ValueError, match="head dims"):
+        big = torch.randn(1, 4, 32, 256, device=dev)
+        fa_ops.flash_attention(big, big, big)
+    with pytest.raises(ValueError, match="GQA"):
+        fa_ops.flash_attention(q, kv[:, :1].expand(1, 3, 32, 64), kv[:, :1].expand(1, 3, 32, 64))
+    with pytest.raises(ValueError, match="kv_len"):
+        fa_ops.flash_attention(q, kv, kv, kv_len=33)
+    with pytest.raises(ValueError, match="same device"):
+        fa_ops.flash_attention(q, kv.cpu(), kv.cpu())
+    assert fa_ops.LAUNCHES["flash_attention"] == before + 1
+
+
+# -------------------------------------------------------------- pairwise_l2
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n,m,d", [(100, 300, 45), (64, 64, 1), (513, 777, 130), (7, 1000, 33)])
+def test_pairwise_l2_kernel_matches_plain(dev, n, m, d, dtype):
+    rng = np.random.default_rng(n + m + d)
+    x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(dev, dtype)
+    y = torch.from_numpy(rng.normal(size=(m, d)).astype(np.float32)).to(dev, dtype)
+    got = pw_ops.pairwise_l2(x, y)
+    # the JAX suite's bound: norm decomposition vs direct difference, float32
+    # sums either way (bfloat16 inputs are exact in float32)
+    torch.testing.assert_close(got, pw_ref.pairwise_l2_ref(x, y), rtol=1e-4, atol=1e-3)
+    assert float(pw_ops.pairwise_l2(x, x).diagonal().abs().max()) < 1e-3
+    assert bool((got >= 0).all())
+
+
+def test_pairwise_l2_counts_launches(dev):
+    x = torch.randn(10, 8, device=dev)
+    before = pw_ops.LAUNCHES["pairwise_l2"]
+    pw_ops.pairwise_l2(x, x)
+    assert pw_ops.LAUNCHES["pairwise_l2"] == before + 1
+    with pytest.raises(TypeError):
+        pw_ops.pairwise_l2(x, x.bfloat16())
+
+
+# ------------------------------------------------------------ embedding_bag
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_embedding_bag_kernel_matches_plain(dev, dtype, mode, weighted):
+    rng = np.random.default_rng(3)
+    table = torch.from_numpy(rng.normal(size=(1000, 72)).astype(np.float32)).to(dev, dtype)
+    ids = torch.from_numpy(rng.integers(0, 1000, (37, 50)).astype(np.int32)).to(dev)
+    ids[:, 1] = ids[:, 0]  # duplicate ids accumulate
+    ids[0, 3] = -1  # out-of-range ids add nothing
+    ids[1, 4] = 1000
+    w = torch.from_numpy(rng.uniform(0.1, 2.0, (37, 50)).astype(np.float32)).to(dev) \
+        if weighted else None
+    got = eb_ops.embedding_bag(table, ids, w, mode=mode)
+    # float32 sums of 50 rows in another order (bag order vs the plain reduction)
+    torch.testing.assert_close(got, eb_ref.embedding_bag_ref(table, ids, w, mode=mode),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_embedding_bag_counts_launches_and_is_deterministic(dev):
+    table = torch.randn(500, 64, device=dev)
+    ids = torch.randint(0, 500, (2048, 50), device=dev, dtype=torch.int32)
+    before = eb_ops.LAUNCHES["embedding_bag"]
+    a = eb_ops.embedding_bag(table, ids)
+    b = eb_ops.embedding_bag(table, ids)
+    assert eb_ops.LAUNCHES["embedding_bag"] == before + 2
+    assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="bags of at most"):
+        eb_ops.embedding_bag(table, torch.zeros((2, eb_ops.MAX_BAG + 1), device=dev,
+                                                dtype=torch.int32))
+
+
+# ------------------------------------------------------------------ the LM
+def test_lm_decode_matches_forward_on_card(dev):
+    """stablelm-1.6b at full width and 2 layers (float32 weights): prefill
+    then teacher-forced decode steps give the cache-free forward's logits,
+    every attention through the kernel."""
+    import dataclasses
+
+    from repro_torch.configs import stablelm_1_6b
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(stablelm_1_6b.make_full(), n_layers=2, dtype=torch.float32)
+    model = T.init_params(0, cfg, device=dev)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 80)).astype(np.int32)).to(dev)
+    before = fa_ops.LAUNCHES["flash_attention"]
+    full, _ = model(tokens)
+    logits, cache = model.prefill(tokens[:, :64], max_len=96, full_logits=False)
+    steps = []
+    for t in range(64, 80):
+        step, cache = model.decode_step(tokens[:, t:t + 1], cache)
+        steps.append(step)
+    assert fa_ops.LAUNCHES["flash_attention"] == before + 2 * (1 + 1 + 16)
+    # the JAX suite's decode-vs-forward bound (tests/test_configs_smoke.py)
+    torch.testing.assert_close(logits, full[:, 63], rtol=5e-2, atol=5e-3)
+    torch.testing.assert_close(torch.stack(steps, 1), full[:, 64:80], rtol=5e-2, atol=5e-3)

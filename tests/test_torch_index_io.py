@@ -112,8 +112,10 @@ def test_entry_points_default_to_cuda(tmp_path, small_lmi):
     machine without one they raise instead of quietly using the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device works here")
+    from repro_torch.configs import stablelm_1_6b
     from repro_torch.core import lmi
     from repro_torch.core.embedding import EmbeddingConfig, embed_dataset
+    from repro_torch.models import transformer
 
     jbuild.save_index(str(tmp_path), small_lmi, n_sections=10, cutoff=50.0)
     x = np.array(small_lmi.sorted_embeddings)
@@ -128,3 +130,8 @@ def test_entry_points_default_to_cuda(tmp_path, small_lmi):
             [{k: np.asarray(v) for k, v in lv.items()} for lv in small_lmi.levels],
             np.asarray(small_lmi.bucket_offsets), np.asarray(small_lmi.sorted_ids), x,
             arities=small_lmi.arities, model_type="kmeans")
+    lm = stablelm_1_6b.make_smoke()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        transformer.init_params(0, lm)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        transformer.init_cache(lm, 2, 16)
