@@ -58,7 +58,9 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
     attention at stablelm-1.6b's prefill (4 x 32 heads x 4,096 into a
     4,160-position cache, dh 64, bf16, causal) and decode (one query row a
     head over the cache) and at starcoder2-15b's GQA prefill (48 / 4 heads,
-    4,096, dh 128); pairwise_l2 at the brute-force shape (the 512 queries x
+    4,096, dh 128) and decode (4 x 48 / 4 heads over the cache), each with
+    its achieved TFLOP/s or GB/s, share of its bound and ratio to SDPA;
+    pairwise_l2 at the brute-force shape (the 512 queries x
     every embedding, float32 and bfloat16); embedding_bag at MIND's (a
     1,000,000 x 64 table, 4,096 weighted histories of 50 with repeated
     items, through ``recsys.bag_lookup(use_kernel=True)``). Each with its
@@ -861,6 +863,7 @@ def new_kernels_phase(torch, np, dev, queries, embeddings):
     from repro_torch.models import recsys
 
     rng = np.random.default_rng(11)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = {}
 
     def randn(*shape, dtype=torch.bfloat16):
@@ -873,11 +876,14 @@ def new_kernels_phase(torch, np, dev, queries, embeddings):
         err = held_close(fa_ops.flash_attention(q, k, v, **kw),
                          fa_ref.flash_attention_ref(q, k, v, **kw), **FLASH_TOL,
                          what=f"flash_attention {name}")
-        ms = time_ms(torch, lambda: fa_ops.flash_attention(q, k, v, **kw), 10)
+        # device only (queued behind a sleep): the kernels' own time, which
+        # a decode step's launch gaps would hide back to back
+        ms = device_ms(torch, lambda: fa_ops.flash_attention(q, k, v, **kw), 10)
+        host_ms = time_ms(torch, lambda: fa_ops.flash_attention(q, k, v, **kw), 10)
         plain_ms = time_ms(torch, lambda: fa_ref.flash_attention_ref(q, k, v, **kw), 3)
         kq, vq = k[:, :, :kv_len], v[:, :, :kv_len]
         lib = dict(is_causal=causal and t == kv_len, enable_gqa=hq != hkv)
-        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(q, kq, vq, **lib), 10)
+        lib_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(q, kq, vq, **lib), 10)
         # visible (query, key) pairs: this run's work, tiles skipped or not
         if causal:
             pairs = sum(min(kv_len, q_offset + i + 1) for i in range(t))
@@ -886,16 +892,26 @@ def new_kernels_phase(torch, np, dev, queries, embeddings):
         n_flops = 4.0 * b * hq * dh * pairs
         n_bytes = 2 * (2 * q.numel() + 2 * b * hkv * kv_len * dh)  # q, out; k, v valid prefix
         bnd = bound_ms(n_bytes, n_flops, BF16_FLOP_PER_S)
-        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd[0],
-                         bound_by=bnd[1], max_abs_err=err, shape=[b, hq, hkv, t, s, dh])
+        # achieved rate of what bounds it, share of the bound, ratio to SDPA
+        rate = (f"{n_flops / ms / 1e9:.1f} TFLOP/s" if bnd[1] == "operations"
+                else f"{n_bytes / ms / 1e6:.1f} GB/s")
+        variant = fa_ops.plan(b, hq, hkv, t, kv_len, q.dtype, sms, causal=causal,
+                              q_offset=q_offset, dh=dh).variant
+        out[name] = dict(ms=ms, host_ms=host_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bnd[0], bound_by=bnd[1], max_abs_err=err,
+                         shape=[b, hq, hkv, t, s, dh], bound_share=bnd[0] / ms,
+                         vs_sdpa=ms / lib_ms, variant=variant)
         print(f"  flash_attention {name} B={b} Hq={hq} Hkv={hkv} T={t} S={s} (kv_len {kv_len}) "
-              f"dh={dh} bf16: {ms:.4f} ms (plain {plain_ms:.3f}, SDPA {lib_ms:.4f}, bound "
-              f"{bnd[0]:.4f} by {bnd[1]}) err {err:.2e}", flush=True)
+              f"dh={dh} bf16 [{variant}]: {ms:.4f} ms device only, {host_ms:.4f} "
+              f"back to back (plain {plain_ms:.3f}, SDPA {lib_ms:.4f} device only, bound "
+              f"{bnd[0]:.4f} by {bnd[1]}) err {err:.2e} | {rate}, "
+              f"{bnd[0] / ms:.1%} of the bound, {ms / lib_ms:.2f}x SDPA's time", flush=True)
 
     B, P, S = LM["batch"], LM["prompt"], LM["max_len"]
     flash_case("stablelm_prefill", B, 32, 32, P, S, 64, True, 0, P)
     flash_case("stablelm_decode", B, 32, 32, 1, S, 64, False, S - 1, S)
     flash_case("starcoder2_gqa_prefill", 1, 48, 4, P, P, 128, True, 0, P)
+    flash_case("starcoder2_gqa_decode", B, 48, 4, 1, S, 128, False, S - 1, S)
 
     # pairwise_l2: the brute-force distance matrix of the main path's queries
     x, y = queries[:BATCH].contiguous(), embeddings.contiguous()
@@ -1320,7 +1336,8 @@ def main() -> None:
         **{key: fa[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms")},
         "per_layer_at": "stablelm-1.6b prefill", "decode": new_records["stablelm_decode"],
-        "gqa": new_records["starcoder2_gqa_prefill"], "lm": lm_rec})
+        "gqa": new_records["starcoder2_gqa_prefill"],
+        "gqa_decode": new_records["starcoder2_gqa_decode"], "lm": lm_rec})
     pw = new_records["pairwise_l2_float32"]
     out["kernels"].append({
         "name": "pairwise_l2", "route": "cuda", "source": f"{pre}/pairwise_l2/csrc/pairwise_l2.cu",

@@ -120,7 +120,7 @@ def _plan(n_mats: int, arity: int, d: int) -> tuple[int, int, int]:
 def _lib():
     lib = kernels.load("beam_eval")
     fn = lib.beam_eval_f32
-    if fn.restype is not ctypes.c_int:
+    if fn.argtypes is None:  # declared once, at first use
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.restype = i
         fn.argtypes = [p, i, p, p, i, i, i, p, p, p, p, p, i, i, i, i, i, i, p, p]

@@ -11,11 +11,19 @@ than ``S - T`` and a valid kv prefix shorter than S. That is what
 prefill into a longer cache (``q_offset=0, kv_len=T``) and a decode step
 (``causal=False, kv_len=pos + 1``) need. q, k and v may be strided
 views, as the transformer's (B, T, H, dh) projections seen as
-(B, H, T, dh) are; only the last dim must be contiguous.
+(B, H, T, dh) are; only the last dim must be contiguous. The bf16
+kernels stage whole rows with 16-byte copies, so a bf16 operand whose
+base or row strides are not 16-byte aligned is first copied contiguous.
+
+The launch (kernel variant, grid, kv splits, merge scratch) is the pure
+function `plan`, which needs no card; the source refuses a grid that
+disagrees with its own.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -28,10 +36,71 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 LAUNCHES = {"flash_attention": 0}
 
 HEAD_DIMS = (64, 128)  # head dims the kernel is compiled for; smaller ones are zero-padded
-SHORT_BLOCK = 16  # query blocks of at most this many rows (decode) split their kv range
+SHORT_BLOCK = 16  # at most this many query rows (decode) take the split-kv kernels
 KV_TILE = 64  # kv positions per kernel tile
-BLOCKS_PER_SM = 8  # split target: this many short-block kernel blocks per SM
+F32_ROWS = (16, 64)  # query rows per block of the float32 kernel: T <= SHORT_BLOCK, longer
+PREFILL_ROWS = {64: 128, 128: 192}  # query rows per block of the bf16 prefill kernel, by dh
+DECODE_ROWS = 16  # of a kv head's T x Hq / Hkv query rows per block of the bf16 decode kernel
+# split target: this many short-block blocks an SM (the f32 kernel's 64-thread
+# blocks, the bf16 decode kernel's 128-thread ones)
+BLOCKS_PER_SM = {"f32": 8, "bf16_decode": 2}
+VARIANTS = ("f32", "bf16_prefill", "bf16_decode")  # index = the source's variant code
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@dataclass(frozen=True)
+class Plan:
+    """One launch: the kernel variant, its grid (x, y, z = splits), the kv
+    tiles of a split, and the float32 scratch the merge reads (None
+    without a split)."""
+    variant: str
+    grid: tuple[int, int, int]
+    tiles_per_split: int
+    scratch: tuple[int, int, int, int] | None
+
+    @property
+    def splits(self) -> int:
+        return self.grid[2]
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(B: int, Hq: int, Hkv: int, T: int, kv_len: int, dtype: torch.dtype, sms: int, *,
+         causal: bool = False, q_offset: int = 0, dh: int = HEAD_DIMS[0]) -> Plan:
+    """The kernel's launch for these shapes on a card of ``sms`` SMs.
+
+    float32 takes the CUDA-core kernel, one block per (batch * q head,
+    q tile). bfloat16 takes the tensor-core prefill kernel when T >
+    SHORT_BLOCK, one block per (batch * q head, PREFILL_ROWS[dh] query
+    rows), and the decode kernel otherwise, one block per (batch * kv
+    head, 16 of the group's T x Hq / Hkv rows). Short blocks split the kv
+    tiles their rows see over ``splits`` blocks, up to BLOCKS_PER_SM
+    blocks an SM: no split is empty, and the scratch is (splits, B * Hq,
+    T, dh + 2), what the merge kernel reads. ``dh`` is the padded head
+    dim."""
+    kv_end = min(kv_len, q_offset + T) if causal else kv_len
+    n_tiles = -(-max(kv_end, 0) // KV_TILE)
+    if dtype == torch.float32:
+        variant = "f32"
+        grid_xy = (B * Hq, -(-T // F32_ROWS[T > SHORT_BLOCK]))
+    elif dtype == torch.bfloat16:
+        variant = "bf16_prefill" if T > SHORT_BLOCK else "bf16_decode"
+        grid_xy = ((B * Hq, -(-T // PREFILL_ROWS[dh])) if T > SHORT_BLOCK
+                   else (B * Hkv, -(-(T * (Hq // Hkv)) // DECODE_ROWS)))
+    else:
+        raise TypeError(f"flash_attention kernel takes float32 or bfloat16, got {dtype}")
+    splits = 1
+    if T <= SHORT_BLOCK and n_tiles > 1:  # too few blocks to fill the card: split the kv range
+        base = grid_xy[0] * grid_xy[1]
+        splits = min(-(-BLOCKS_PER_SM[variant] * sms // base), n_tiles)
+    tiles = max(1, -(-n_tiles // splits))
+    splits = max(1, -(-n_tiles // tiles))
+    return Plan(variant=variant, grid=(*grid_xy, splits), tiles_per_split=tiles,
+                scratch=(splits, B * Hq, T, dh + 2) if splits > 1 else None)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _lib():
@@ -40,12 +109,23 @@ def _lib():
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
             ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+            ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_void_p]
     return fn
 
 
 def _last_dim_dense(t: torch.Tensor) -> torch.Tensor:
     return t if t.stride(-1) == 1 else t.contiguous()
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t itself when its base and its (batch, head, position) strides
+    allow the bf16 kernels' 16-byte copies of whole rows, else a
+    contiguous copy (a fresh, aligned allocation)."""
+    step = 16 // t.element_size()
+    if t.data_ptr() % 16 == 0 and all(st % step == 0 for n, st in zip(t.shape[:3], t.stride()[:3])
+                                      if n > 1):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool, q_offset: int,
@@ -78,20 +158,20 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool, q
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out[..., :dh]
+    p = plan(B, Hq, Hkv, T, kv_len, q.dtype, _sm_count(q.device), causal=causal,
+             q_offset=q_offset, dh=width)
+    if p.variant != "f32":
+        q, k, v = _aligned16(q), _aligned16(k), _aligned16(v)
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                                        *out.stride()[:3])
-    splits, part = 1, None
-    if T <= SHORT_BLOCK:  # B * Hq blocks only: split the kv range (the kernel may use fewer)
-        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-        splits = max(1, min(-(-BLOCKS_PER_SM * sms // (B * Hq)), -(-max(kv_len, 1) // KV_TILE)))
-        if splits > 1:
-            part = torch.empty((splits, B * Hq, T, width + 2), dtype=torch.float32,
-                               device=q.device)
+    part = (None if p.scratch is None
+            else torch.empty(p.scratch, dtype=torch.float32, device=q.device))
     with torch.cuda.device(q.device):
         status = _lib()(kernels.ptr(q), kernels.ptr(k), kernels.ptr(v), kernels.ptr(out),
                         _DTYPE_CODE[q.dtype], B, Hq, Hkv, T, S, width, strides, int(causal),
-                        q_offset, kv_len, dh ** -0.5, splits,
-                        None if part is None else kernels.ptr(part), kernels.stream_handle())
+                        q_offset, kv_len, dh ** -0.5, VARIANTS.index(p.variant), *p.grid,
+                        p.tiles_per_split, None if part is None else kernels.ptr(part),
+                        kernels.stream_handle())
     kernels.check_status("flash_attention", status)
     LAUNCHES["flash_attention"] += 1
     return out if width == dh else out[..., :dh]

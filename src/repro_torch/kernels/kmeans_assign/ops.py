@@ -23,7 +23,7 @@ _MAX_DIM = 1024  # widest point row the kernel's register tile takes
 def _lib():
     lib = kernels.load("kmeans_assign")
     fn = lib.kmeans_assign_f32
-    if fn.restype is not ctypes.c_int:
+    if fn.argtypes is None:  # declared once, at first use
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,

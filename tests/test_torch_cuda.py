@@ -334,6 +334,10 @@ FLASH_CASES = [
     (2, 4, 4, 1, 3000, 64, False, 2000, 2001),  # decode over a long cache: 32 kv splits
     (1, 8, 2, 12, 1000, 128, True, 900, 1000),  # a causal short block, split
     (1, 2, 2, 64, 96, 96, False, None, None),  # non-causal, dh zero-padded to 128
+    (1, 4, 4, 2048, 2048, 64, True, None, None),  # causal prefill over long rows
+    (2, 12, 1, 1, 4160, 128, False, 4000, 4001),  # starcoder2's 48 / 4 group as 12 / 1, decode
+    (1, 4, 2, 200, 300, 64, True, 37, 237),  # the diagonal falls mid-tile (q_offset 37)
+    (2, 4, 4, 50, 90, 64, True, None, None, "unaligned"),  # q rows not 16-byte aligned
 ]
 # float32: the kernel and the plain version sum in another order (JAX's
 # flash tolerance). bfloat16: both round a float32 result to bfloat16, so
@@ -345,13 +349,16 @@ FLASH_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4), torch.bfloat16: dict(rto
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "x".join(map(str, c)))
 def test_flash_kernel_matches_plain(dev, case, dtype):
-    B, Hq, Hkv, T, S, dh, causal, q_offset, kv_len = case
+    B, Hq, Hkv, T, S, dh, causal, q_offset, kv_len, *layout = case
     rng = np.random.default_rng(T * 7 + S)
 
     def randn(*shape):
         return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev, dtype)
 
     q = randn(B, T, Hq, dh).transpose(1, 2)  # strided, as the transformer's projections
+    if layout == ["unaligned"]:  # a slice of a wider tensor: every row 4 or 8 bytes off 16
+        q = randn(B, T, Hq, dh + 2)[..., 2:].transpose(1, 2)
+        assert q.data_ptr() % 16
     k, v = randn(B, Hkv, S, dh), randn(B, Hkv, S, dh)
     got = fa_ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len)
     want = fa_ref.flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len)

@@ -195,12 +195,14 @@ def test_mlps_match_jax(dtype):
 
 
 # ------------------------------------------------------- flash, plain form
-# (B, Hq, Hkv, T, S, causal): T and S 128-aligned, as JAX's wrapper demands
+# (B, Hq, Hkv, T, S, causal[, dh]): T and S 128-aligned, as JAX's wrapper
+# demands; dh 64 unless given
 FLASH = [
     (1, 4, 4, 128, 128, True),
     (2, 8, 2, 128, 128, True),
     (1, 4, 4, 128, 256, True),  # S > T: queries at the end of the stream
     (1, 8, 2, 128, 256, False),
+    (1, 12, 1, 128, 256, True, 128),  # starcoder2's 48 / 4 group as 12 / 1, dh 128
 ]
 
 
@@ -209,11 +211,12 @@ FLASH = [
 def test_flash_plain_matches_jax_pallas(case, dtype):
     """The kernel's plain version against JAX's Pallas kernel (interpret
     mode) with the TPU kernel's defaults: q_offset S - T, kv_len S."""
-    b, hq, hkv, t, s, causal = case
+    b, hq, hkv, t, s, causal, *dh = case
+    dh = dh[0] if dh else 64
     rng = np.random.default_rng(7)
-    jq, pq = _pair(rng, b, hq, t, 64, dtype=dtype)
-    jk, pk = _pair(rng, b, hkv, s, 64, dtype=dtype)
-    jv, pv = _pair(rng, b, hkv, s, 64, dtype=dtype)
+    jq, pq = _pair(rng, b, hq, t, dh, dtype=dtype)
+    jk, pk = _pair(rng, b, hkv, s, dh, dtype=dtype)
+    jv, pv = _pair(rng, b, hkv, s, dh, dtype=dtype)
     want = jfa_ops.flash_attention(jq, jk, jv, causal=causal, interpret=True)
     got = pfa_ops.flash_attention(pq, pk, pv, causal=causal)
     assert got.dtype == pq.dtype and got.shape == pq.shape
