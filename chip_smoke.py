@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # everything, on one CUDA card
     python3 chip_smoke.py --quick    # 20k chains, no CLIs, the LM at 2 layers
+    python3 chip_smoke.py --lm-only  # the build and phase 6 alone, no result line
 
 Phases, each of which fails the run (non-zero exit) if anything is off:
 
@@ -58,8 +59,10 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
     attention at stablelm-1.6b's prefill (4 x 32 heads x 4,096 into a
     4,160-position cache, dh 64, bf16, causal) and decode (one query row a
     head over the cache) and at starcoder2-15b's GQA prefill (48 / 4 heads,
-    4,096, dh 128) and decode (4 x 48 / 4 heads over the cache), each with
-    its achieved TFLOP/s or GB/s, share of its bound and ratio to SDPA;
+    4,096, dh 128) and decode (4 x 48 / 4 heads over the cache), each
+    timed back to back and device only (queued behind a sleep), with its
+    achieved TFLOP/s or GB/s and share of its bound (device only), its
+    ratio to SDPA both ways and the wrapper's host time a call;
     pairwise_l2 at the brute-force shape (the 512 queries x
     every embedding, float32 and bfloat16); embedding_bag at MIND's (a
     1,000,000 x 64 table, 4,096 weighted histories of 50 with repeated
@@ -77,7 +80,9 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
     prefill's last logits and on every teacher-forced decode step, with a
     tie-aware top-1 check, and decode against the forward (the last 16
     prompt positions replayed). Prefill and decode tokens/s and ms are
-    printed.
+    printed, and one decode step broken down: its host time and the flash
+    wrapper's share of it, its device time (a ``torch.profiler`` window)
+    and the flash kernels' share of it.
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or run
@@ -209,6 +214,55 @@ def device_ms(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_ms(torch, fn, reps: int) -> float:
+    """Mean host milliseconds of ``fn`` over ``reps`` calls enqueued with
+    no sync between them, after one warm-up call: the launch path's own
+    time, while the card keeps up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t * 1e3 / reps
+
+
+def step_breakdown(torch, fa_ops, fn, reps: int) -> dict:
+    """One call of ``fn`` (a decode step), broken down, in ms a call: its
+    host time (calls enqueued with no sync between) and the flash wrapper's
+    share of it; its device time (the sum of its kernels' and copies'
+    device times in a ``torch.profiler`` window) and the flash kernels'
+    share of it (the source's kernels and merge, by name). The device
+    numbers are None when the profiler saw no kernel."""
+    from unittest import mock
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    inner, spent = fa_ops.flash_attention, [0.0]
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        out = inner(*args, **kw)
+        spent[0] += time.perf_counter() - t0
+        return out
+
+    with mock.patch.object(fa_ops, "flash_attention", timed):
+        host = host_ms(torch, fn, reps)
+    spent[0] /= reps + 1  # host_ms's warm-up call ran through the wrapper too
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    on_dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in on_dev) / 1e3 / reps
+    flash = [e for e in on_dev if "flash_" in e.name]
+    return dict(host_ms=host, flash_host_ms=spent[0] * 1e3, device_ms=busy or None,
+                flash_device_ms=sum(e.time_range.elapsed_us() for e in flash) / 1e3 / reps
+                if flash else None, device_ops=len(on_dev) / reps, flash_ops=len(flash) / reps)
 
 
 def bound_ms(n_bytes: float, n_flops: float, op_rate: float = F32_FLOP_PER_S):
@@ -758,6 +812,9 @@ def lm_phase(torch, np, dev, quick: bool):
     # back, and device only (queued behind a sleep), for the idle share
     step_host = time_ms(torch, lambda: T.decode_step(cfg, model, gen[-2], before), 10)
     step_dev = device_ms(torch, lambda: T.decode_step(cfg, model, gen[-2], before), 10)
+    # the same step broken down: host time, the flash wrapper's share of it,
+    # device busy time from the profiler, the flash kernels' share of it
+    brk = step_breakdown(torch, fa_ops, lambda: T.decode_step(cfg, model, gen[-2], before), 5)
     del before
     check(all(n == n_layers for n in per_step),
           f"decode steps launched the flash kernel {sorted(set(per_step))} times, not {n_layers}")
@@ -818,6 +875,7 @@ def lm_phase(torch, np, dev, quick: bool):
         prefill_tok_s=B * P / t_pre, plain_prefill_ms=t_plain * 1e3,
         decode_ms_per_step=t_dec * 1e3 / LM["steps"], decode_tok_s=B * LM["steps"] / t_dec,
         decode_step_ms=step_host, decode_step_device_ms=step_dev,
+        decode_step_breakdown=brk,
         forward_ms=t_fwd * 1e3,
         launches=dict(prefill=n_pre, forward=n_fwd, decode_per_step=per_step[0]),
         kernel_vs_plain_max_err=max(e[0] for e in plain_errs),
@@ -836,6 +894,14 @@ def lm_phase(torch, np, dev, quick: bool):
           f"{1.0 - step_dev / step_host:.3f}) | "
           f"forward {B}x{P}: {t_fwd * 1e3:.1f} ms | flash launches: prefill {n_pre}, forward "
           f"{n_fwd}, every decode step {per_step[0]}", flush=True)
+    busy, fl = brk["device_ms"], brk["flash_device_ms"]
+    print(f"LM decode step breakdown (the last step): host {brk['host_ms']:.3f} ms enqueued, of "
+          f"it the flash wrapper {brk['flash_host_ms']:.3f} ms "
+          f"({brk['flash_host_ms'] / n_layers * 1e3:.1f} us a call) | device busy "
+          + (f"{busy:.3f} ms (profiler, {brk['device_ops']:.0f} kernels and copies), of it "
+             f"flash {fl} ms ({brk['flash_ops']:.0f} kernels) | idle share of the "
+             f"back-to-back step {1.0 - busy / step_host:.3f}"
+             if busy else "not measured (the profiler saw no kernel)"), flush=True)
     print(f"LM checks: kernel vs plain (prefill + {LM['steps']} teacher-forced steps) max "
           f"|dlogit| {rec['kernel_vs_plain_max_err']:.4g} of max |logit| "
           f"{rec['kernel_vs_plain_logit_scale']:.4g} (limit x{LM_LOGIT_TOL}), top-1 same / "
@@ -876,14 +942,18 @@ def new_kernels_phase(torch, np, dev, queries, embeddings):
         err = held_close(fa_ops.flash_attention(q, k, v, **kw),
                          fa_ref.flash_attention_ref(q, k, v, **kw), **FLASH_TOL,
                          what=f"flash_attention {name}")
-        # device only (queued behind a sleep): the kernels' own time, which
-        # a decode step's launch gaps would hide back to back
-        ms = device_ms(torch, lambda: fa_ops.flash_attention(q, k, v, **kw), 10)
-        host_ms = time_ms(torch, lambda: fa_ops.flash_attention(q, k, v, **kw), 10)
+        # ms and library_ms back to back, as every kernel line; device_ms and
+        # library_device_ms queued behind a sleep (the kernels' own time,
+        # which a short call's host time hides back to back); the wrapper's
+        # host time a call, the launches enqueued with no sync between
+        run = lambda: fa_ops.flash_attention(q, k, v, **kw)
+        ms, dev_ms, wrap_ms = time_ms(torch, run, 10), device_ms(torch, run, 10), host_ms(
+            torch, run, 50)
         plain_ms = time_ms(torch, lambda: fa_ref.flash_attention_ref(q, k, v, **kw), 3)
         kq, vq = k[:, :, :kv_len], v[:, :, :kv_len]
         lib = dict(is_causal=causal and t == kv_len, enable_gqa=hq != hkv)
-        lib_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(q, kq, vq, **lib), 10)
+        sdpa = lambda: F.scaled_dot_product_attention(q, kq, vq, **lib)
+        lib_ms, lib_dev_ms = time_ms(torch, sdpa, 10), device_ms(torch, sdpa, 10)
         # visible (query, key) pairs: this run's work, tiles skipped or not
         if causal:
             pairs = sum(min(kv_len, q_offset + i + 1) for i in range(t))
@@ -892,20 +962,23 @@ def new_kernels_phase(torch, np, dev, queries, embeddings):
         n_flops = 4.0 * b * hq * dh * pairs
         n_bytes = 2 * (2 * q.numel() + 2 * b * hkv * kv_len * dh)  # q, out; k, v valid prefix
         bnd = bound_ms(n_bytes, n_flops, BF16_FLOP_PER_S)
-        # achieved rate of what bounds it, share of the bound, ratio to SDPA
-        rate = (f"{n_flops / ms / 1e9:.1f} TFLOP/s" if bnd[1] == "operations"
-                else f"{n_bytes / ms / 1e6:.1f} GB/s")
+        # the kernel's achieved rate of what bounds it and share of the
+        # bound (device only), and its ratio to SDPA both ways
+        rate = (f"{n_flops / dev_ms / 1e9:.1f} TFLOP/s" if bnd[1] == "operations"
+                else f"{n_bytes / dev_ms / 1e6:.1f} GB/s")
         variant = fa_ops.plan(b, hq, hkv, t, kv_len, q.dtype, sms, causal=causal,
                               q_offset=q_offset, dh=dh).variant
-        out[name] = dict(ms=ms, host_ms=host_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=bnd[0], bound_by=bnd[1], max_abs_err=err,
-                         shape=[b, hq, hkv, t, s, dh], bound_share=bnd[0] / ms,
-                         vs_sdpa=ms / lib_ms, variant=variant)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd[0],
+                         bound_by=bnd[1], max_abs_err=err, shape=[b, hq, hkv, t, s, dh],
+                         device_ms=dev_ms, library_device_ms=lib_dev_ms, wrapper_host_ms=wrap_ms,
+                         bound_share=bnd[0] / dev_ms, vs_sdpa=ms / lib_ms,
+                         vs_sdpa_device=dev_ms / lib_dev_ms, variant=variant)
         print(f"  flash_attention {name} B={b} Hq={hq} Hkv={hkv} T={t} S={s} (kv_len {kv_len}) "
-              f"dh={dh} bf16 [{variant}]: {ms:.4f} ms device only, {host_ms:.4f} "
-              f"back to back (plain {plain_ms:.3f}, SDPA {lib_ms:.4f} device only, bound "
-              f"{bnd[0]:.4f} by {bnd[1]}) err {err:.2e} | {rate}, "
-              f"{bnd[0] / ms:.1%} of the bound, {ms / lib_ms:.2f}x SDPA's time", flush=True)
+              f"dh={dh} bf16 [{variant}]: {ms:.4f} ms (plain {plain_ms:.3f}, SDPA {lib_ms:.4f}, "
+              f"bound {bnd[0]:.4f} by {bnd[1]}) err {err:.2e} | device only {dev_ms:.4f} ms "
+              f"(SDPA {lib_dev_ms:.4f}): {rate}, {bnd[0] / dev_ms:.1%} of the bound | "
+              f"{ms / lib_ms:.2f}x SDPA's time back to back, {dev_ms / lib_dev_ms:.2f}x device "
+              f"only | wrapper host {wrap_ms * 1e3:.1f} us a call", flush=True)
 
     B, P, S = LM["batch"], LM["prompt"], LM["max_len"]
     flash_case("stablelm_prefill", B, 32, 32, P, S, 64, True, 0, P)
@@ -1011,6 +1084,11 @@ def main() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas[{name}]: {line.strip()}")
+    if "--lm-only" in sys.argv[1:]:
+        # phase 6 alone, to set the LM's serving numbers of two trees side by
+        # side in one call: a partial run, so it prints no result line
+        lm_phase(torch, np, dev, quick)
+        return
 
     if quick:
         n_obj, arities, gen_chunk = 20_000, (32, 64), 20_000
@@ -1334,7 +1412,7 @@ def main() -> None:
         "source": f"{pre}/flash_attention/csrc/flash_attention.cu",
         "replaces": f"{fp}/flash_attention/kernel.py:75", "launches": lm_launches,
         **{key: fa[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms")},
+                                    "library_ms", "device_ms", "library_device_ms")},
         "per_layer_at": "stablelm-1.6b prefill", "decode": new_records["stablelm_decode"],
         "gqa": new_records["starcoder2_gqa_prefill"],
         "gqa_decode": new_records["starcoder2_gqa_decode"], "lm": lm_rec})

@@ -959,20 +959,20 @@ int launch_bf16(int variant, const void* q, const void* k, const void* v, void* 
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16 (q, k, v and out alike). strides: 12 element
-// strides, (batch, head, position) of q, k, v and out. variant, grid and
-// tiles_per_split are the wrapper's plan (ops.plan): 0 the float32 kernel,
-// grid (B * Hq, q tiles of 16 rows when T <= 16 else 64, splits); 1 the
-// bfloat16 prefill kernel, (B * Hq, q tiles of 128 rows, 1); 2 the bfloat16
-// decode kernel, (B * Hkv, tiles of 16 of the T * Hq / Hkv rows, splits).
-// A grid that disagrees with these shapes, or splits that leave a split
-// empty or a kv tile uncovered, is refused. part: float32 scratch of
+// strides, (batch, head, position) of q, k, v and out. variant, splits and
+// tiles_per_split are the wrapper's plan (ops.plan), which picks the
+// variant and the kv split; the grid's x and y follow from the variant
+// here: 0 the float32 kernel, (B * Hq, q tiles of 16 rows when T <= 16
+// else 64); 1 the bfloat16 prefill kernel, (B * Hq, q tiles of
+// kPrefillRows); 2 the bfloat16 decode kernel, (B * Hkv, tiles of
+// kDecodeRows of the T * Hq / Hkv rows). Splits that leave a split empty
+// or a kv tile uncovered are refused. part: float32 scratch of
 // splits * B * Hq * T * (dh + 2) when splits > 1.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int dtype, int batch, int hq, int hkv, int t_len, int s_len,
                                    int dh, const long long* strides, int causal, int q_offset,
-                                   int kv_len, float scale, int variant, int grid_x, int grid_y,
-                                   int grid_z, int tiles_per_split, float* part,
-                                   cudaStream_t stream) {
+                                   int kv_len, float scale, int variant, int splits,
+                                   int tiles_per_split, float* part, cudaStream_t stream) {
   if (batch == 0 || t_len == 0 || hq == 0) return 0;
   if (hkv < 1 || hq % hkv != 0 || kv_len < 0 || kv_len > s_len || q_offset < 0 ||
       (dh != 64 && dh != 128) || (dtype == 0) != (variant == kF32) || variant < 0 ||
@@ -981,18 +981,17 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   const int rows = variant == kF32 ? (t_len <= 16 ? 16 : 64)
                  : variant == kPrefill ? (dh == 64 ? kPrefillRows<64> : kPrefillRows<128>)
                                        : kDecodeRows;
-  const int want_x = variant == kDecode ? batch * hkv : batch * hq;
-  const int want_y = ((variant == kDecode ? t_len * (hq / hkv) : t_len) + rows - 1) / rows;
+  const int grid_y = ((variant == kDecode ? t_len * (hq / hkv) : t_len) + rows - 1) / rows;
   const int kv_end = causal ? min(kv_len, q_offset + t_len) : kv_len;
   const int n_tiles = (kv_end + kBK - 1) / kBK;
-  if (grid_x != want_x || grid_y != want_y || want_y > 65535 || grid_z < 1 || grid_z > 65535 ||
-      tiles_per_split < 1 || (long long)grid_z * tiles_per_split < n_tiles ||
-      (grid_z > 1 && ((grid_z - 1) * tiles_per_split >= n_tiles || !part ||
+  if (grid_y > 65535 || splits < 1 || splits > 65535 || tiles_per_split < 1 ||
+      (long long)splits * tiles_per_split < n_tiles ||
+      (splits > 1 && ((splits - 1) * tiles_per_split >= n_tiles || !part ||
                       (variant == kF32 && t_len > 16) || variant == kPrefill)))
     return (int)cudaErrorInvalidValue;
   const Strides st{strides[0], strides[1], strides[2],  strides[3],  strides[4],  strides[5],
                    strides[6], strides[7], strides[8],  strides[9],  strides[10], strides[11]};
-  const dim3 grid(grid_x, grid_y, grid_z);
+  const dim3 grid(variant == kDecode ? batch * hkv : batch * hq, grid_y, splits);
   int err;
   if (dtype == 0)
     err = dh == 64 ? launch_f32<64>(q, k, v, o, hq, hkv, t_len, st, causal, q_offset, kv_len,
@@ -1006,24 +1005,24 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                       q_offset, kv_len, scale, grid, tiles_per_split, part,
                                       stream);
   if (err) return err;
-  if (grid_z > 1) {
+  if (splits > 1) {
     err = (int)cudaGetLastError();
     if (err) return err;
     const dim3 cgrid(batch * hq, t_len);
     if (dtype == 0) {
       if (dh == 64)
-        flash_combine_kernel<float, 64><<<cgrid, 64, 0, stream>>>(part, grid_z, hq, t_len,
+        flash_combine_kernel<float, 64><<<cgrid, 64, 0, stream>>>(part, splits, hq, t_len,
                                                                  static_cast<float*>(o), st);
       else
-        flash_combine_kernel<float, 128><<<cgrid, 128, 0, stream>>>(part, grid_z, hq, t_len,
+        flash_combine_kernel<float, 128><<<cgrid, 128, 0, stream>>>(part, splits, hq, t_len,
                                                                    static_cast<float*>(o), st);
     } else {
       if (dh == 64)
         flash_combine_kernel<__nv_bfloat16, 64><<<cgrid, 64, 0, stream>>>(
-            part, grid_z, hq, t_len, static_cast<__nv_bfloat16*>(o), st);
+            part, splits, hq, t_len, static_cast<__nv_bfloat16*>(o), st);
       else
         flash_combine_kernel<__nv_bfloat16, 128><<<cgrid, 128, 0, stream>>>(
-            part, grid_z, hq, t_len, static_cast<__nv_bfloat16*>(o), st);
+            part, splits, hq, t_len, static_cast<__nv_bfloat16*>(o), st);
     }
   }
   return (int)cudaGetLastError();

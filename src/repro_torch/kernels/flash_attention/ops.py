@@ -16,8 +16,9 @@ kernels stage whole rows with 16-byte copies, so a bf16 operand whose
 base or row strides are not 16-byte aligned is first copied contiguous.
 
 The launch (kernel variant, grid, kv splits, merge scratch) is the pure
-function `plan`, which needs no card; the source refuses a grid that
-disagrees with its own.
+function `plan`, which needs no card. The source takes the variant and
+the split from it, derives the grid from the same tile sizes, and
+refuses splits that leave a kv tile uncovered or a split empty.
 """
 from __future__ import annotations
 
@@ -38,9 +39,12 @@ LAUNCHES = {"flash_attention": 0}
 HEAD_DIMS = (64, 128)  # head dims the kernel is compiled for; smaller ones are zero-padded
 SHORT_BLOCK = 16  # at most this many query rows (decode) take the split-kv kernels
 KV_TILE = 64  # kv positions per kernel tile
-F32_ROWS = (16, 64)  # query rows per block of the float32 kernel: T <= SHORT_BLOCK, longer
-PREFILL_ROWS = {64: 128, 128: 192}  # query rows per block of the bf16 prefill kernel, by dh
-DECODE_ROWS = 16  # of a kv head's T x Hq / Hkv query rows per block of the bf16 decode kernel
+# Query rows a block, as the source's kernels take them. The source derives
+# its grid from its own constants; these set only the split count (blocks
+# before splitting) and Plan.grid, so a drift costs occupancy, not safety.
+F32_ROWS = (16, 64)  # the float32 kernel: T <= SHORT_BLOCK, longer
+PREFILL_ROWS = {64: 128, 128: 192}  # the bf16 prefill kernel (kPrefillRows), by dh
+DECODE_ROWS = 16  # of a kv head's T x Hq / Hkv rows, the bf16 decode kernel (kDecodeRows)
 # split target: this many short-block blocks an SM (the f32 kernel's 64-thread
 # blocks, the bf16 decode kernel's 128-thread ones)
 BLOCKS_PER_SM = {"f32": 8, "bf16_decode": 2}
@@ -109,7 +113,7 @@ def _lib():
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
             ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_void_p]
+            ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_void_p]
     return fn
 
 
@@ -169,7 +173,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool, q
     with torch.cuda.device(q.device):
         status = _lib()(kernels.ptr(q), kernels.ptr(k), kernels.ptr(v), kernels.ptr(out),
                         _DTYPE_CODE[q.dtype], B, Hq, Hkv, T, S, width, strides, int(causal),
-                        q_offset, kv_len, dh ** -0.5, VARIANTS.index(p.variant), *p.grid,
+                        q_offset, kv_len, dh ** -0.5, VARIANTS.index(p.variant), p.splits,
                         p.tiles_per_split, None if part is None else kernels.ptr(part),
                         kernels.stream_handle())
     kernels.check_status("flash_attention", status)
