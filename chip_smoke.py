@@ -18,7 +18,12 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
     launch counts are set to 0 just before and read just after; each
     kernel must have launched. The kernel path's answers must equal the
     plain path's (the same index on the CPU) modulo distance ties;
-    recall@30 vs brute force is printed;
+    recall@30 vs brute force is printed. The index is then built a
+    second time from the seed, which must equal the first bit for bit
+    (every level's centroids, the offsets, the ids; a fingerprint line
+    prints empty buckets, the centroids' SHA-256 and recall@30), with its
+    stages timed per level (seeding, assignment, sums and repair, the
+    loop, padding, children), the level caps and the build's peak memory;
  2b. quantized stores over the main path's index and query batches (no
     second generation): int8 with row scales and float32 compute, int8
     with bucket scales and int8 compute, fp8-e4m3 with row scales, fp8
@@ -52,7 +57,10 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
     the main path gave them (512 queries, the full build's candidate
     capacity, every store tier (float32, bfloat16, int8 and fp8 with row
     or bucket scales, int8 compute on the int8 stores) in both gather
-    forms, 3 metrics; 518,576 x 256 x 45 for the assignment; 32,768
+    forms, 3 metrics; the assignment at the build's root (1, 518,576,
+    45) x 256 and level-1 (256, cap, 45) x 64 shapes, back to back and
+    device only, with its variant and its 3xTF32, byte and float32
+    CUDA-core bounds; 32,768
     (query, prefix) pairs over 4,096 nodes of arity 64 for beam_eval, 3
     families), with CUDA-event times and the bound of each; and the
     kernels of the LM and recsys paths at their callers' shapes: flash
@@ -112,11 +120,12 @@ N_FAMILIES = 200
 SEED = 0
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate, non-tensor-core float32
-# rate, dense int8 and bfloat16 tensor-core rates
+# rate, dense int8, bfloat16 and TF32 tensor-core rates
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 INT8_OP_PER_S = 1979e12
 BF16_FLOP_PER_S = 989e12
+TF32_FLOP_PER_S = 495e12
 
 # |kernel - plain| limits, by metric: the kernels use the norm
 # decomposition, the plain version the direct difference; Euclidean near
@@ -342,8 +351,8 @@ def counters():
     from repro_torch.kernels.lmi_filter import ops as lf_ops
     from repro_torch.kernels.pairwise_l2 import ops as pw_ops
 
-    return (ka_ops.LAUNCHES, lf_ops.LAUNCHES, lf_ops.TIER_LAUNCHES, be_ops.LAUNCHES,
-            fa_ops.LAUNCHES, pw_ops.LAUNCHES, eb_ops.LAUNCHES)
+    return (ka_ops.LAUNCHES, ka_ops.VARIANT_LAUNCHES, lf_ops.LAUNCHES, lf_ops.TIER_LAUNCHES,
+            be_ops.LAUNCHES, fa_ops.LAUNCHES, pw_ops.LAUNCHES, eb_ops.LAUNCHES)
 
 
 def reset() -> None:
@@ -381,6 +390,112 @@ def ranking_agrees(torch, n_leaves, order_a, logp_a, order_b, logp_b):
     return same, pos, tie
 
 
+def fingerprint(index) -> tuple:
+    """(empty buckets, the first 12 hex digits of the SHA-256 of every
+    level's centroid bytes): two builds of one index agree on both."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for level in index.levels:
+        h.update(level["centroids"].float().contiguous().cpu().numpy().tobytes())
+    return int((index.bucket_sizes() == 0).sum()), h.hexdigest()[:12]
+
+
+def same_index(torch, a, b) -> bool:
+    """Every level's centroids, the bucket offsets and the ids, bit for bit."""
+    return (len(a.levels) == len(b.levels)
+            and all(torch.equal(la["centroids"], lb["centroids"])
+                    for la, lb in zip(a.levels, b.levels))
+            and torch.equal(a.bucket_offsets, b.bucket_offsets)
+            and torch.equal(a.sorted_ids, b.sorted_ids))
+
+
+BUILD_STAGES = ("seeding", "assignment", "sums and repair", "loop and host syncs", "padding",
+                "children")
+
+
+def build_breakdown(torch, emb, arities, dev):
+    """The main-path build again from SEED, with its functions timed from
+    here (each call between two synchronisations; the package has no
+    timers): per level, k-means++ seeding, the Lloyd assignments (the
+    kmeans_assign wrapper), the rest of each Lloyd step (one-hot sums,
+    empty-cluster repair), the rest of the Lloyd loop (shift, freezing,
+    the host sync of each iteration), `_pad_groups` and `_assign_children`.
+    -> (index, [per-level record], total seconds, level 1's padded points)."""
+    from unittest import mock
+
+    from repro_torch.core import kmeans, lmi
+    from repro_torch.kernels.kmeans_assign import ops as ka_ops
+
+    levels, cur = [], [None]
+    kept = {}
+
+    def new_level():
+        levels.append(dict({st: 0.0 for st in BUILD_STAGES}, fit=0.0, launches=0, shapes=set()))
+        cur[0] = levels[-1]
+
+    def timed(stage, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            cur[0][stage] += time.perf_counter() - t0
+            return out
+        return run
+
+    inner_assign, inner_fit, inner_many, inner_pad = (
+        ka_ops.kmeans_assign_with_dist, kmeans.fit, kmeans.fit_many, lmi._pad_groups)
+
+    def assign(x, c):  # the Lloyd step's: x (G, n, d), c (G, k, d)
+        cur[0]["launches"] += 1
+        cur[0]["shapes"].add((tuple(x.shape), c.shape[-2]))
+        return timed("assignment", inner_assign)(x, c)
+
+    def fit(gen, x, k, **kw):
+        new_level()
+        cur[0].update(groups=1, cap=x.shape[0], pad_share=0.0)
+        st = timed("fit", inner_fit)(gen, x, k, **kw)
+        cur[0]["iterations"] = int(st.n_iter)
+        return st
+
+    def fit_many(gen, xs, ws, k, **kw):
+        cur[0].update(groups=xs.shape[0], cap=xs.shape[1],
+                      pad_share=1.0 - float(ws.sum()) / ws.numel())
+        if len(levels) == 2:
+            kept["level1_points"] = xs
+        st = timed("fit", inner_many)(gen, xs, ws, k, **kw)
+        cur[0]["iterations"] = int(st.n_iter.max())
+        return st
+
+    def pad_groups(*args):
+        new_level()
+        return timed("padding", inner_pad)(*args)
+
+    patches = [mock.patch.object(ka_ops, "kmeans_assign_with_dist", assign),
+               mock.patch.object(kmeans, "fit", fit),
+               mock.patch.object(kmeans, "fit_many", fit_many),
+               mock.patch.object(kmeans, "_plusplus_init", timed("seeding", kmeans._plusplus_init)),
+               mock.patch.object(kmeans, "_lloyd_step_many",
+                                 timed("sums and repair", kmeans._lloyd_step_many)),
+               mock.patch.object(kmeans, "_lloyd", timed("loop and host syncs", kmeans._lloyd)),
+               mock.patch.object(lmi, "_pad_groups", pad_groups),
+               mock.patch.object(lmi, "_assign_children",
+                                 timed("children", lmi._assign_children))]
+    with contextlib.ExitStack() as stack:
+        for patch in patches:
+            stack.enter_context(patch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index = lmi.build(SEED, emb, arities=arities, model_type="kmeans", device=dev)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    for lv in levels:  # nested timers: each stage net of the ones inside it
+        lv["loop and host syncs"] -= lv["sums and repair"]
+        lv["sums and repair"] -= lv["assignment"]
+    return index, levels, total, kept.get("level1_points")
+
+
 def depth3_phase(torch, np, index, queries, dev):
     """Phase 3: the depth-3 beam serving points over the main path's
     embeddings. -> (beam_eval records by family, the phase's launches)."""
@@ -407,7 +522,7 @@ def depth3_phase(torch, np, index, queries, dev):
     sizes = index3.bucket_sizes().cpu().numpy()
     print(f"depth-3 build {'x'.join(map(str, D3_ARITIES))} over {n_obj} embeddings: "
           f"{t_build:.2f}s; buckets mean {sizes.mean():.2f} max {sizes.max()} "
-          f"empty {(sizes == 0).sum()}; planes "
+          f"empty {(sizes == 0).sum()}, centroids sha256 {fingerprint(index3)[1]}; planes "
           + ", ".join(f"{n} {p.nbytes() / 2**20:.1f} MB" for n, p in planes.items()), flush=True)
 
     phase_launches = read()
@@ -601,6 +716,56 @@ def depth3_phase(torch, np, index, queries, dev):
               f"{st['n_param_loads']}, segmented {st['segmented_bytes'] / 1e6:.1f} MB vs "
               f"gather {st['gather_bytes'] / 1e6:.1f} MB", flush=True)
     return records, phase_launches
+
+
+def assign_phase(torch, dev, ka_ops, ka_ref, cases, build_levels) -> dict:
+    """kmeans_assign at the build's shapes: held against its plain version
+    (min d2 within ASSIGN_TOL, a label swap only between centroids within
+    ASSIGN_TOL by direct difference), timed back to back and device only,
+    with its variant, the launches of the breakdown build at that shape
+    (the main path's build is the same build), and its bounds: 3xTF32
+    operations at the TF32 peak or bytes, and the float32 CUDA-core bound
+    (what the one-thread-a-point design could reach). -> {case: record}."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for name, x, c in cases:
+        g, n, d = x.shape
+        k = c.shape[1]
+        kl, km = ka_ops.kmeans_assign_with_dist(x, c)
+        rl, rm = ka_ref.kmeans_assign_ref(x, c)
+        aerr, arel = errors(km, rm)
+        check(aerr <= ASSIGN_TOL, f"kmeans_assign {name}: min d2 |err| {aerr}")
+        swapped = kl != rl
+        if bool(swapped.any()):  # a label swap is fine only between near-equal centroids
+            def dist(lab):
+                cl = torch.gather(c, 1, lab.long()[..., None].expand(g, n, d))
+                return ((x - cl) ** 2).sum(-1)[swapped]
+            gap = float((dist(kl) - dist(rl)).abs().max())
+            check(gap <= ASSIGN_TOL, f"kmeans_assign {name}: labels differ beyond ties ({gap})")
+        run = lambda: ka_ops.kmeans_assign_with_dist(x, c)
+        ms, dev_ms = time_ms(torch, run, 20), device_ms(torch, run, 20)
+        plain_ms = time_ms(torch, lambda: ka_ref.kmeans_assign_ref(x, c), 5)
+        flops, n_bytes = 2.0 * g * n * k * d, g * n * d * 4 + g * k * d * 4 + g * n * 8
+        bnd = bound_ms(n_bytes, 3 * flops, TF32_FLOP_PER_S)
+        p = ka_ops.plan(g, n, k, d, sms)
+        at_shape = [lv for lv in build_levels if ((g, n, d), k) in lv["shapes"]]
+        launches = sum(lv["launches"] for lv in at_shape)
+        pad = at_shape[0]["pad_share"] if at_shape else 0.0
+        out[name] = dict(max_abs_err=aerr, max_rel_err=arel, ms=ms, device_ms=dev_ms,
+                         plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
+                         bound_bytes_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
+                         bound_f32_ms=flops / F32_FLOP_PER_S * 1e3,
+                         variant=p.variant, chunk=p.chunk, grid=p.grid[0], shape=[g, n, k, d],
+                         launches_at_shape=launches, padding_rows=pad,
+                         label_swaps=int(swapped.sum()))
+        print(f"  kmeans_assign {name} ({g}, {n}, {d}) x {k} [{p.variant}, chunk {p.chunk}, "
+              f"{p.grid[0]} blocks]: {ms:.4f} ms back to back, {dev_ms:.4f} device only (plain "
+              f"{plain_ms:.3f}; bound {bnd[0]:.4f} by {bnd[1]} at 3xTF32, bytes "
+              f"{out[name]['bound_bytes_ms']:.4f}, float32 CUDA cores "
+              f"{out[name]['bound_f32_ms']:.4f}) err {aerr:.1e} rel {arel:.1e}, label swaps "
+              f"{int(swapped.sum())} | {launches} launches at this shape in the build, padding "
+              f"rows {pad:.1%}", flush=True)
+    return out
 
 
 def filter_bytes(tier, item, d, nq, shapes, form: str, k: int) -> int:
@@ -1062,7 +1227,7 @@ def main() -> None:
     import numpy as np
 
     from repro_torch import kernels
-    from repro_torch.core import filtering, lmi
+    from repro_torch.core import filtering, kmeans, lmi
     from repro_torch.core import planes as planes_lib
     from repro_torch.core import store as store_lib
     from repro_torch.core.embedding import EmbeddingConfig
@@ -1101,10 +1266,12 @@ def main() -> None:
     emb, t_gen, t_emb = build_cli.generate_embeddings(
         SEED, ProteinGenConfig(n_proteins=n_obj, n_families=N_FAMILIES), ecfg, dev,
         chunk_size=gen_chunk)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     index = lmi.build(SEED, emb, arities=arities, model_type="kmeans", device=dev)
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
+    build_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     store = store_lib.from_lmi(index, FULL["store_dtype"])
     check(index.n_objects == n_obj, "index lost objects")
     sizes = index.bucket_sizes().cpu().numpy()
@@ -1186,6 +1353,39 @@ def main() -> None:
           f"range max |err| {rerr:.2e}; card vs CPU kNN agreement {cpu_agree:.4f}; "
           f"recall@{FULL['k']} vs brute force {recall:.4f}", flush=True)
     check(recall > 0.5, f"recall@{FULL['k']} {recall} is implausibly low")
+
+    # the same build again from SEED, its stages timed: it must equal the
+    # first bit for bit (every level's centroids, offsets, ids)
+    index2, build_levels, t_build2, level1_points = build_breakdown(torch, emb, arities, dev)
+    empty, sha = fingerprint(index)
+    empty2, sha2 = fingerprint(index2)
+    same = same_index(torch, index, index2)
+    print(f"build fingerprint: empty buckets {empty}, centroids sha256 {sha}, recall@{FULL['k']} "
+          f"vs brute force {recall:.4f} | second build from seed {SEED}: empty buckets {empty2}, "
+          f"sha256 {sha2}, {'bitwise equal' if same else 'DIFFERENT'} (centroids of every level, "
+          f"offsets, ids)", flush=True)
+    check(same, "two builds from one seed differ")
+    del index2
+    # why the seeding sums its CDF in a fixed order: a single-row cumsum over
+    # the root's points on the card scans with a look-back across blocks
+    row = torch.softmax(emb[:, 0], 0)
+    n_cumsum = len({torch.cumsum(row, 0).cpu().numpy().tobytes() for _ in range(20)})
+    n_cdf = len({kmeans._cdf(row).cpu().numpy().tobytes() for _ in range(20)})
+    print(f"seeding CDF over {row.numel()} points, distinct results in 20 calls: torch.cumsum "
+          f"{n_cumsum}, the build's fixed-order CDF {n_cdf}", flush=True)
+    check(n_cdf == 1, "the seeding's CDF differs from call to call")
+    for i, lv in enumerate(build_levels):
+        rest = lv["fit"] - sum(lv[st] for st in BUILD_STAGES[:4])
+        print(f"build breakdown, level {i} ({lv['groups']} group(s), cap {lv['cap']}, padding "
+              f"rows {lv['pad_share']:.1%}, {lv['iterations']} Lloyd steps, kmeans_assign "
+              f"launches {lv['launches']} at {sorted(lv['shapes'])}), ms: fit {lv['fit'] * 1e3:.1f}"
+              " = " + " + ".join(f"{st} {lv[st] * 1e3:.1f}" for st in BUILD_STAGES[:4])
+              + f" + other {rest * 1e3:.1f}; padding {lv['padding'] * 1e3:.1f}; children "
+              f"{lv['children'] * 1e3:.1f}", flush=True)
+    in_levels = sum(lv["fit"] + lv["padding"] + lv["children"] for lv in build_levels)
+    print(f"build: {t_build:.3f} s ({t_build2:.3f} s with the stage timers' synchronisations), "
+          f"of it the levels {in_levels:.3f} s and the rest (root routing, CSR store) "
+          f"{t_build2 - in_levels:.3f} s | peak memory {build_peak_gb:.2f} GB", flush=True)
 
     # where a 512-query kNN batch spends its time, stage by stage
     logp = lmi.leaf_log_probs(index, q)
@@ -1314,25 +1514,11 @@ def main() -> None:
                   + f" | plain topk {t_topk_ref:.3f} range {t_range_ref:.3f} | gathered "
                   f"{covered * d * item / 1e6:.1f} MB", flush=True)
 
-    x = emb  # the root fit's shapes: every point against the 256 root centroids
-    c = index.levels[0]["centroids"]
-    kl, km = ka_ops.kmeans_assign_with_dist(x, c)
-    rl, rm = ka_ref.kmeans_assign_ref(x, c)
-    aerr, arel = errors(km, rm)
-    check(aerr <= ASSIGN_TOL, f"kmeans_assign min d2 |err| {aerr}")
-    swapped = kl != rl
-    if bool(swapped.any()):  # a label swap is fine only between near-equal centroids
-        xs = x[swapped]
-        gap = ((xs - c[kl[swapped].long()]) ** 2).sum(-1) - ((xs - c[rl[swapped].long()]) ** 2).sum(-1)
-        check(float(gap.abs().max()) <= ASSIGN_TOL, "kmeans_assign labels differ beyond ties")
-    t_assign = time_ms(torch, lambda: ka_ops.kmeans_assign_with_dist(x, c), 20)
-    t_assign_ref = time_ms(torch, lambda: ka_ref.kmeans_assign_ref(x, c), 5)
-    n, kk = x.shape[0], c.shape[0]
-    b_assign = bound_ms(n * d * 4 + kk * d * 4 + n * 8, 2.0 * n * kk * d)
-    print(f"  kmeans_assign {n}x{kk}x{d}: {t_assign:.4f} ms (plain {t_assign_ref:.3f}, "
-          f"bound {b_assign[0]:.4f}) err {aerr:.1e} rel {arel:.1e}, "
-          f"label swaps {int(swapped.sum())}",
-          flush=True)
+    # the assignment at the build's two shapes: every point against the root
+    # centroids, and level 1's padded groups against their children
+    assign_records = assign_phase(torch, dev, ka_ops, ka_ref, (
+        ("root", emb[None], index.levels[0]["centroids"][None]),
+        ("level1", level1_points, index.levels[1]["centroids"])), build_levels)
 
     # ---- 5 (continued). flash attention, pairwise_l2 and embedding_bag at
     # their callers' shapes
@@ -1393,9 +1579,8 @@ def main() -> None:
         {"name": "kmeans_assign", "route": "cuda",
          "source": "src/repro_torch/kernels/kmeans_assign/csrc/kmeans_assign.cu",
          "replaces": "src/repro/kernels/kmeans_assign/kernel.py:42",
-         "launches": launches["kmeans_assign"], "max_abs_err": aerr, "max_rel_err": arel,
-         "ms": t_assign, "plain_ms": t_assign_ref, "bound_ms": b_assign[0],
-         "bound_by": b_assign[1], "library_ms": None},
+         "launches": launches["kmeans_assign"], **assign_records["root"],
+         "level1": assign_records["level1"]},
     ], "quantized_stores": quant_records}
     kb = beam_records["kmeans"]  # the family of the path; all three under "families"
     out["kernels"].append({

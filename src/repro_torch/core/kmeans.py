@@ -1,10 +1,13 @@
 """K-Means, the LMI's default partitioning model (counterpart of
 ``repro.core.kmeans``).
 
-  * k-means++ initialisation (weighted D^2 sampling);
+  * k-means++ initialisation (weighted D^2 sampling, by an inverse CDF
+    summed in a fixed order);
   * Lloyd iterations until the centroid shift drops to ``tol``;
   * per-point weights (weight 0 == padding), so the variable-size child
     fits of every LMI level >= 1 run as one padded batch (`fit_many`);
+  * per-cluster sums by a one-hot product, as the reference takes them,
+    so a build on the card reproduces from its seed;
   * empty-cluster repair: an empty centroid snaps to the live point
     farthest from its centroid (``argmax(mind2 * weights)``);
   * `predict_log_proba` — log_softmax over negative squared distances,
@@ -24,6 +27,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.kmeans_assign import ops as ka_ops
 
@@ -34,11 +38,31 @@ class KMeansState(NamedTuple):
     n_iter: torch.Tensor  # Lloyd steps taken
 
 
+_SCAN_BLOCK = 512  # entries of a row the CDF sums in one scan
+
+
+def _cdf(p: torch.Tensor) -> torch.Tensor:
+    """The inclusive cumulative sum of ``p`` (..., n) over its last dim,
+    added in the same order on every run: scans within blocks of
+    ``_SCAN_BLOCK`` entries, then the blocks' totals before each block by a
+    product with a triangular matrix. (torch.cumsum of a single long row on
+    CUDA scans with a look-back across thread blocks, whose float order,
+    and so the seeding's draws, change from run to run.)"""
+    n = p.shape[-1]
+    m = -(-n // _SCAN_BLOCK)
+    blocks = F.pad(p, (0, m * _SCAN_BLOCK - n)).reshape(*p.shape[:-1], m, _SCAN_BLOCK)
+    within = torch.cumsum(blocks, dim=-1)
+    earlier = torch.ones((m, m), dtype=p.dtype, device=p.device).triu(1)  # [i, j] = i < j
+    before = within[..., -1] @ earlier  # (..., m): the totals of the blocks before each
+    cdf = (within + before[..., None]).reshape(*p.shape[:-1], m * _SCAN_BLOCK)
+    return cdf[..., :n].contiguous()
+
+
 def _choice(gen: torch.Generator, p: torch.Tensor) -> torch.Tensor:
     """One index per row drawn with probabilities proportional to ``p``
     (..., n) — the inverse-CDF rule of ``jax.random.choice(p=...)``: an
     all-zero row draws index 0."""
-    cdf = torch.cumsum(p, dim=-1)
+    cdf = _cdf(p)
     u = torch.rand(p.shape[:-1], generator=gen, device=p.device, dtype=p.dtype)
     r = cdf[..., -1] * (1.0 - u)
     idx = torch.searchsorted(cdf, r[..., None].contiguous())[..., 0]
@@ -79,20 +103,25 @@ def _lloyd_step_many(x: torch.Tensor, centroids: torch.Tensor, k: int,
                      weights: torch.Tensor):
     """One Lloyd step for G groups at once: x (G, n, d), centroids
     (G, k, d), weights (G, n) -> (new centroids, labels, inertia (G,))."""
-    g, _, d = x.shape
+    d = x.shape[-1]
     labels, mind2 = ka_ops.kmeans_assign_with_dist(x, centroids)
-    labels = labels.long()
     inertia = torch.sum(mind2 * weights, dim=-1)
-    counts = torch.zeros((g, k), dtype=x.dtype, device=x.device).scatter_add_(1, labels, weights)
-    sums = torch.zeros((g, k, d), dtype=x.dtype, device=x.device).scatter_add_(
-        1, labels[..., None].expand(-1, -1, d), x * weights[..., None])
+    # per-cluster sums as the reference takes them, onehot.T @ x: a product
+    # and a reduction, whose results do not depend on any run-time order
+    # (a scatter-add adds by atomics on the card, so the build would not
+    # reproduce from its seed); the product runs in full float32. onehot
+    # (G, n, k) is one_hot(labels, k) * weights, built without an int64 copy
+    ids = torch.arange(k, device=x.device, dtype=labels.dtype)
+    onehot = torch.where(labels[..., None] == ids, weights[..., None], 0.0)
+    counts = onehot.sum(1)
+    sums = torch.bmm(onehot.transpose(1, 2), x)
     new = sums / torch.clamp(counts, min=1e-12)[..., None]
     # empty-cluster repair: the live point farthest from its centroid
     # (weight-masked, so padding is never chosen; argmax ties to the first)
     far = torch.argmax(mind2 * weights, dim=-1)
     farthest = torch.gather(x, 1, far[:, None, None].expand(-1, 1, d))
     new = torch.where((counts < 1e-12)[..., None], farthest, new)
-    return new, labels.to(torch.int32), inertia
+    return new, labels, inertia
 
 
 def _lloyd_step(x: torch.Tensor, centroids: torch.Tensor, k: int, weights: torch.Tensor):

@@ -62,6 +62,82 @@ def test_lloyd_step_matches_jax():
     np.testing.assert_allclose(float(pi), float(ji), rtol=1e-4)  # a sum over all points
 
 
+def _lloyd_many_case():
+    """Three groups of a padded level: zero-weight padding rows (copies of
+    the first point, as `lmi._pad_groups` pads), a far centroid that ends
+    empty (repaired to the farthest live point), groups of unequal size."""
+    rng = np.random.default_rng(4)
+    groups, cap, k, d = 3, 256, 9, 45
+    xs = rng.uniform(0, 1, (groups, cap, d)).astype(np.float32)
+    ws = np.zeros((groups, cap), np.float32)
+    cs = np.empty((groups, k, d), np.float32)
+    for g, live in enumerate((256, 170, 60)):
+        ws[g, :live] = 1.0
+        xs[g, live:] = xs[0, 0]
+        cs[g] = xs[g, rng.choice(live, k, replace=False)] + 0.01
+    cs[1, 4] = 5.0  # far away: empty
+    return xs, ws, cs, k
+
+
+def test_lloyd_step_many_matches_jax_vmap():
+    """The batched step against ``jax.vmap`` of the reference's single-group
+    step, at the single-group test's tolerances."""
+    xs, ws, cs, k = _lloyd_many_case()
+    step = jax.vmap(lambda x, c, w: jkm._lloyd_step(x, c, k, w))
+    jc, jl, ji = step(jnp.asarray(xs), jnp.asarray(cs), jnp.asarray(ws))
+    pc, pl, pi = pkm._lloyd_step_many(torch.from_numpy(xs), torch.from_numpy(cs), k,
+                                      torch.from_numpy(ws))
+    assert pl.dtype == torch.int32
+    np.testing.assert_array_equal(np_(pl), np.asarray(jl))
+    np.testing.assert_allclose(np_(pc), np.asarray(jc), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(np_(pi), np.asarray(ji), rtol=1e-4)  # sums over all points
+    assert not np.allclose(np_(pc)[1, 4], 5.0)  # the empty cluster was repaired
+
+
+def test_lloyd_sums_take_no_scatter_add(monkeypatch):
+    """The per-cluster sums go through a product and a reduction with a
+    fixed order, never a scatter-add, which adds by atomics on the card
+    (a build there would not reproduce from its seed)."""
+    def refuse(*args, **kw):
+        raise AssertionError("scatter_add_ on the Lloyd path")
+
+    monkeypatch.setattr(torch.Tensor, "scatter_add_", refuse)
+    monkeypatch.setattr(torch.Tensor, "scatter_add", refuse)
+    monkeypatch.setattr(torch, "scatter_add", refuse)
+    xs, ws, cs, k = _lloyd_many_case()
+    pkm._lloyd_step_many(torch.from_numpy(xs), torch.from_numpy(cs), k, torch.from_numpy(ws))
+    st = pkm.fit_many(None, torch.from_numpy(xs), torch.from_numpy(ws), k, max_iter=5,
+                      init_centroids=torch.from_numpy(cs))
+    assert tuple(st.centroids.shape) == cs.shape
+
+
+@pytest.mark.parametrize("shape", [(518_576,), (3, 16_384), (2, 1025), (1, 7)])
+def test_seeding_cdf_is_a_cumulative_sum(shape):
+    """The seeding's fixed-order CDF (block scans plus a triangular product
+    of the block totals) is the cumulative sum, to float32 rounding of the
+    row's total."""
+    p = torch.from_numpy(np.random.default_rng(8).uniform(size=shape).astype(np.float32))
+    got = pkm._cdf(p)
+    want = np.cumsum(np_(p).astype(np.float64), axis=-1)
+    assert got.shape == p.shape and got.is_contiguous()
+    np.testing.assert_allclose(np_(got), want, rtol=0, atol=2e-6 * float(want[..., -1].max()))
+
+
+def test_choice_draws_by_inverse_cdf():
+    """Each row draws where its CDF first reaches the drawn level: only
+    indices with mass, and index 0 for an all-zero row."""
+    p = torch.zeros(4, 3000)
+    p[1, 2500] = 1.0
+    p[2, 600:620] = 1.0
+    p[3] = 1.0
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    draws = torch.stack([pkm._choice(gen, p) for _ in range(50)])
+    assert bool((draws[:, 0] == 0).all()) and bool((draws[:, 1] == 2500).all())
+    assert bool(((draws[:, 2] >= 600) & (draws[:, 2] < 620)).all())
+    assert len(set(draws[:, 3].tolist())) > 40
+
+
 def _init_first_rows(key, x, k, weights):  # the injected seeding: a group's first k rows
     return x[:k]
 

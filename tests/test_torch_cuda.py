@@ -197,8 +197,9 @@ def test_card_codes_equal_cpu(dev, dtype, gran):
 @pytest.mark.parametrize("n,k,d", [(5000, 256, 45), (2000, 300, 45), (700, 9, 100),
                                    (300, 5, 300)])
 def test_kmeans_assign_kernel_matches_plain(dev, n, k, d):
-    """Register tiles for d <= 64, <= 256 and <= 1024; k = 300 at d = 45
-    streams the centroids through shared memory in two chunks."""
+    """d = 45 takes the tensor-core variant (k = 300 in five chunks of 64
+    centroids); d = 100 and 300 the CUDA-core variant's register tiles of
+    <= 256 and <= 1024."""
     rng = np.random.default_rng(n + k)
     x = torch.from_numpy(rng.uniform(0, 1, (n, d)).astype(np.float32)).to(dev)
     c = torch.from_numpy(rng.uniform(0, 1, (k, d)).astype(np.float32)).to(dev)
@@ -222,6 +223,128 @@ def test_kmeans_assign_kernel_groups(dev):
         rl, rm = ka_ref.kmeans_assign_ref(xs[g], cs[g])
         assert torch.equal(labels[g], rl)
         torch.testing.assert_close(mind[g], rm, rtol=1e-5, atol=1e-5)
+
+
+ASSIGN_TOL = 1e-4  # min squared distance, and the margin of a label swap (chip_smoke's)
+
+
+def _assign_case(dev, x, c):
+    """The kernel against its plain version on the same (G, n, d) / (G, k,
+    d) operands: min d2 within ASSIGN_TOL, labels equal except between
+    centroids whose direct-difference distances are within ASSIGN_TOL.
+    -> (kernel labels, the variant launches of the call)."""
+    before = dict(ka_ops.VARIANT_LAUNCHES)
+    kl, km = ka_ops.kmeans_assign_with_dist(x, c)
+    torch.cuda.synchronize()
+    launched = {v: n - before[v] for v, n in ka_ops.VARIANT_LAUNCHES.items() if n > before[v]}
+    rl, rm = ka_ref.kmeans_assign_ref(x, c)
+    assert kl.shape == rl.shape and kl.dtype == torch.int32 and bool((km >= 0).all())
+    torch.testing.assert_close(km, rm, rtol=1e-5, atol=ASSIGN_TOL)
+    swapped = kl != rl
+    if bool(swapped.any()):
+        picked = torch.gather(c, -2, kl.long()[..., None].expand(*kl.shape, c.shape[-1]))
+        wanted = torch.gather(c, -2, rl.long()[..., None].expand(*rl.shape, c.shape[-1]))
+        gap = ((x - picked) ** 2).sum(-1) - ((x - wanted) ** 2).sum(-1)
+        assert float(gap[swapped].abs().max()) <= ASSIGN_TOL
+    return kl, launched
+
+
+# (groups, n, k, d): the root shape at test size; k = 5, 9 and 300 (five
+# chunks of 64); 16 groups at level 1's k and d
+TC_CASES = [(1, 5000, 256, 45), (1, 3000, 5, 45), (1, 3000, 9, 45), (1, 2000, 300, 45),
+            (16, 1024, 64, 45)]
+
+
+@pytest.mark.parametrize("case", TC_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_kmeans_assign_tensor_cores_match_plain(dev, case):
+    """The tensor-core variant (3xTF32 wgmma) at the build's shapes; the
+    groups' tails are padding rows (copies of the first point, as
+    `lmi._pad_groups` pads)."""
+    g, n, k, d = case
+    rng = np.random.default_rng(sum(case))
+    x = torch.from_numpy(rng.uniform(0, 1, (g, n, d)).astype(np.float32)).to(dev)
+    c = torch.from_numpy(rng.uniform(0, 1, (g, k, d)).astype(np.float32)).to(dev)
+    if g > 1:
+        for i, live in enumerate(rng.integers(1, n, g)):
+            x[i, live:] = x[0, 0]
+    assert ka_ops.plan(g, n, k, d, 132).variant == "tensor_core"
+    _kl, launched = _assign_case(dev, x, c)
+    assert launched == {"kmeans_assign:tensor_core": 1}
+
+
+def test_kmeans_assign_tensor_cores_ties(dev):
+    """Exact ties go to the lower index (bitwise-equal centroids, points
+    on a centroid); near-ties 1e-6 apart may swap only within ASSIGN_TOL."""
+    rng = np.random.default_rng(21)
+    c = rng.uniform(0, 1, (64, 45)).astype(np.float32)
+    c[40], c[63] = c[3], c[3]  # copies of centroid 3 further down
+    c[20] = c[10] + rng.normal(scale=1e-6, size=45).astype(np.float32)  # near-tie pairs
+    c[50] = c[11] + rng.normal(scale=1e-6, size=45).astype(np.float32)
+    x = rng.uniform(0, 1, (4096, 45)).astype(np.float32)
+    x[:64] = c[3]  # on the tied centroid
+    x[64:128] = c[10] + rng.normal(scale=0.05, size=(64, 45)).astype(np.float32)
+    x[128:192] = c[11] + rng.normal(scale=0.05, size=(64, 45)).astype(np.float32)
+    xt, ct = torch.from_numpy(x).to(dev), torch.from_numpy(c).to(dev)
+    kl, _ = _assign_case(dev, xt, ct)
+    assert bool((kl[:64] == 3).all())
+    assert not bool(((kl == 40) | (kl == 63)).any())
+
+
+def test_kmeans_assign_tensor_cores_cancellation(dev):
+    """Coordinates near 100: |x|^2 + |c|^2 ~ 9e5 cancels to d2 ~ 10, where
+    the float32 decomposition itself is off by a few ulps of 9e5 (both the
+    plain version and the kernel); TF32 alone (no lo terms) would be off by
+    ~2^-11 of it. Held at 16 float32 ulps of |x|^2 + |c|^2."""
+    rng = np.random.default_rng(22)
+    x = torch.from_numpy((100 + rng.uniform(0, 1, (3000, 45))).astype(np.float32)).to(dev)
+    c = torch.from_numpy((100 + rng.uniform(0, 1, (256, 45))).astype(np.float32)).to(dev)
+    kl, km = ka_ops.kmeans_assign_with_dist(x, c)
+    rl, rm = ka_ref.kmeans_assign_ref(x, c)
+    scale = (x * x).sum(-1) + (c * c).sum(-1).max()
+    tol = 16 * 2.0 ** -24 * scale
+    assert bool(((km - rm).abs() <= tol).all())
+    swapped = kl != rl
+    gap = ((x - c[kl.long()]) ** 2).sum(-1) - ((x - c[rl.long()]) ** 2).sum(-1)
+    assert bool((gap[swapped].abs() <= tol[swapped]).all())
+
+
+@pytest.mark.parametrize("d", [100, 300])
+def test_kmeans_assign_wide_rows_take_cuda_cores(dev, d):
+    rng = np.random.default_rng(d)
+    x = torch.from_numpy(rng.uniform(0, 1, (2, 700, d)).astype(np.float32)).to(dev)
+    c = torch.from_numpy(rng.uniform(0, 1, (2, 9, d)).astype(np.float32)).to(dev)
+    assert ka_ops.plan(2, 700, 9, d, 132).variant == "cuda_core"
+    _kl, launched = _assign_case(dev, x, c)
+    assert launched == {"kmeans_assign:cuda_core": 1}
+
+
+def test_build_reproduces_from_its_seed(dev):
+    """Two builds from one seed on the card give bitwise-equal indexes:
+    every level's centroids, the bucket offsets and the ids (the Lloyd
+    sums take a fixed order; a scatter-add's atomics would not)."""
+    assert torch.backends.cuda.matmul.allow_tf32 is False  # the sums' product in float32
+    rng = np.random.default_rng(3)
+    centers = rng.uniform(0, 1, (200, 45))
+    x = centers[rng.integers(0, 200, 20_000)] + rng.normal(scale=0.05, size=(20_000, 45))
+    x = torch.from_numpy(x.astype(np.float32)).to(dev)
+    a, b = (lmi.build(0, x, arities=(32, 64), device=dev) for _ in range(2))
+    for la, lb in zip(a.levels, b.levels):
+        assert torch.equal(la["centroids"], lb["centroids"])
+    assert torch.equal(a.bucket_offsets, b.bucket_offsets)
+    assert torch.equal(a.sorted_ids, b.sorted_ids)
+
+
+def test_seeding_cdf_repeats_bit_for_bit(dev):
+    """The seeding's CDF over a root-sized row (the paper's 518,576 points)
+    is the same on every call; a single-row torch.cumsum on the card scans
+    with a look-back whose float order can change from call to call."""
+    from repro_torch.core import kmeans
+
+    p = torch.from_numpy(np.random.default_rng(9).uniform(size=518_576).astype(np.float32))
+    p = (p / p.sum()).to(dev)
+    first = kmeans._cdf(p)
+    for _ in range(20):
+        assert torch.equal(kmeans._cdf(p), first)
 
 
 def test_build_and_query_on_card_match_cpu(dev):

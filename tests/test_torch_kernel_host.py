@@ -1,10 +1,13 @@
 """The host side of the port's kernel wrappers, on the CPU: the ctypes
 declarations each wrapper makes before its first launch, and the flash
 kernel's launch plan (``flash_attention.ops.plan``) and operand
-alignment. Nothing here launches a kernel or needs a card."""
+alignment, and the kmeans_assign kernel's launch plan
+(``kmeans_assign.ops.plan``). Nothing here launches a kernel or needs a
+card."""
 import ctypes
 import itertools
 
+import numpy as np
 import pytest
 import torch
 
@@ -159,3 +162,71 @@ def test_aligned16_copies_only_unaligned_operands():
     assert torch.equal(got, off)
     odd = torch.zeros(2, 4, 40, 65, dtype=torch.bfloat16)[..., :64]  # row stride 65
     assert fa_ops._aligned16(odd).is_contiguous()
+
+
+# ---------------------------------------------------- kmeans_assign plan
+# (groups, n, k, d): the (256, 64) build's root and level 1 (cap 16,384);
+# the depth-3 (64, 64, 64) build's level 1 and 2; k = 5, 9, 300 (the card
+# tests'); the card tests' groups; d = 100 and 300; k too wide to fit
+KA_SHAPES = [(1, 518_576, 256, 45), (256, 16_384, 64, 45), (64, 30_720, 64, 45),
+             (4096, 2048, 64, 45), (1, 3000, 5, 45), (1, 3000, 9, 45), (1, 2000, 300, 45),
+             (16, 1024, 64, 45), (3, 500, 6, 12), (2, 700, 9, 100), (2, 700, 9, 300),
+             (1, 100, 1000, 45), (1, 1, 1, 1)]
+KA_CASES = list(itertools.product(KA_SHAPES, SMS))
+
+
+@pytest.mark.parametrize("case", KA_CASES, ids=lambda c: "x".join(map(str, c[0])) + f"-{c[1]}sm")
+def test_kmeans_assign_plan_variant_and_padding(case):
+    """d <= 64 takes the tensor cores when the centroids' whole chunks fit
+    shared memory beside the point tiles (at most the 232,448-byte opt-in),
+    wider rows the CUDA cores; k is padded to a multiple of 8 (and of the
+    chunk on the tensor cores), d to the next tensor-core width."""
+    (g, n, k, d), sms = case
+    p = ka_ops.plan(g, n, k, d, sms)
+    assert p.k_pad >= k and p.k_pad % 8 == 0
+    if p.variant == "tensor_core":
+        assert d <= ka_ops.TC_MAX_DIM
+        assert p.d_pad == min(w for w in ka_ops.TC_WIDTHS if w >= d)
+        assert p.chunk in ka_ops.TC_CHUNKS and p.k_pad % p.chunk == 0
+        assert p.k_pad - k < p.chunk  # no chunk of padding alone
+        assert p.smem_bytes == ka_ops.tc_smem_bytes(p.k_pad, p.d_pad) <= ka_ops.SMEM_LIMIT
+        wider = [c for c in ka_ops.TC_CHUNKS if c > p.chunk and c // 2 < k]
+        assert all(ka_ops.tc_smem_bytes(-(-k // c) * c, p.d_pad) > ka_ops.SMEM_LIMIT
+                   for c in wider)  # the widest chunk that fits
+    else:
+        assert d > ka_ops.TC_MAX_DIM or ka_ops.tc_smem_bytes(
+            -(-k // 64) * 64, min(w for w in ka_ops.TC_WIDTHS if w >= d)) > ka_ops.SMEM_LIMIT
+        assert p.grid == (-(-n // ka_ops.CC_THREADS), g) and p.smem_bytes <= 48 * 1024
+
+
+@pytest.mark.parametrize("case", KA_CASES, ids=lambda c: "x".join(map(str, c[0])) + f"-{c[1]}sm")
+def test_kmeans_assign_plan_blocks_cover_every_tile(case):
+    """The persistent blocks' contiguous ranges cover each (group, 128-row
+    tile) pair exactly once, every block gets one, and the tiles cover
+    every point of every group."""
+    (g, n, k, d), sms = case
+    p = ka_ops.plan(g, n, k, d, sms)
+    if p.variant != "tensor_core":
+        return
+    assert p.tiles == (g, -(-n // ka_ops.TC_ROWS)) and p.tiles[1] * p.tile >= n
+    assert p.grid == (min(p.n_tiles, sms), 1)
+    seen = np.zeros(p.n_tiles, np.int64)
+    for b in range(p.grid[0]):
+        r = p.block_tiles(b)
+        assert len(r) >= 1
+        seen[r.start:r.stop] += 1
+    assert (seen == 1).all()
+
+
+def test_kmeans_assign_plan_build_shapes():
+    """The shapes the (256, 64) build drives take the tensor cores as
+    designed: 256 centroids in one chunk at the root, 64 at level 1, d 45
+    padded to 48."""
+    root = ka_ops.plan(1, 518_576, 256, 45, 132)
+    assert (root.variant, root.chunk, root.k_pad, root.d_pad) == ("tensor_core", 256, 256, 48)
+    assert root.smem_bytes == 198_656 and root.grid == (132, 1)
+    lvl = ka_ops.plan(256, 16_384, 64, 45, 132)
+    assert (lvl.variant, lvl.chunk, lvl.k_pad, lvl.d_pad) == ("tensor_core", 64, 64, 48)
+    assert ka_ops.plan(1, 2000, 300, 45, 132).chunk == 64  # five chunks of 64 fit, wider do not
+    with pytest.raises(ValueError):
+        ka_ops.plan(1, 10, 4, 1025, 132)
