@@ -356,9 +356,12 @@ def counters():
 
 
 def reset() -> None:
+    from repro_torch.kernels.kmeans_assign import ops as ka_ops
+
     for counts in counters():
         for name in counts:
             counts[name] = 0
+    ka_ops.SHAPE_LAUNCHES.clear()
 
 
 def read() -> dict:
@@ -431,7 +434,7 @@ def build_breakdown(torch, emb, arities, dev):
     kept = {}
 
     def new_level():
-        levels.append(dict({st: 0.0 for st in BUILD_STAGES}, fit=0.0, launches=0, shapes=set()))
+        levels.append(dict({st: 0.0 for st in BUILD_STAGES}, fit=0.0, calls=0, shapes=set()))
         cur[0] = levels[-1]
 
     def timed(stage, fn):
@@ -448,7 +451,7 @@ def build_breakdown(torch, emb, arities, dev):
         ka_ops.kmeans_assign_with_dist, kmeans.fit, kmeans.fit_many, lmi._pad_groups)
 
     def assign(x, c):  # the Lloyd step's: x (G, n, d), c (G, k, d)
-        cur[0]["launches"] += 1
+        cur[0]["calls"] += 1
         cur[0]["shapes"].add((tuple(x.shape), c.shape[-2]))
         return timed("assignment", inner_assign)(x, c)
 
@@ -718,12 +721,13 @@ def depth3_phase(torch, np, index, queries, dev):
     return records, phase_launches
 
 
-def assign_phase(torch, dev, ka_ops, ka_ref, cases, build_levels) -> dict:
+def assign_phase(torch, dev, ka_ops, ka_ref, cases, build_levels, build_launches) -> dict:
     """kmeans_assign at the build's shapes: held against its plain version
     (min d2 within ASSIGN_TOL, a label swap only between centroids within
     ASSIGN_TOL by direct difference), timed back to back and device only,
-    with its variant, the launches of the breakdown build at that shape
-    (the main path's build is the same build), and its bounds: 3xTF32
+    with the variant the checked call launched (it must be the tensor
+    cores'), the main-path build's launches at that shape (the wrapper's
+    counts by shape, ``build_launches``), and its bounds: 3xTF32
     operations at the TF32 peak or bytes, and the float32 CUDA-core bound
     (what the one-thread-a-point design could reach). -> {case: record}."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -731,7 +735,10 @@ def assign_phase(torch, dev, ka_ops, ka_ref, cases, build_levels) -> dict:
     for name, x, c in cases:
         g, n, d = x.shape
         k = c.shape[1]
+        before = dict(ka_ops.VARIANT_LAUNCHES)
         kl, km = ka_ops.kmeans_assign_with_dist(x, c)
+        ran = [v.split(":")[1] for v, m in ka_ops.VARIANT_LAUNCHES.items() if m > before[v]]
+        check(ran == ["tensor_core"], f"kmeans_assign {name}: the checked call launched {ran}")
         rl, rm = ka_ref.kmeans_assign_ref(x, c)
         aerr, arel = errors(km, rm)
         check(aerr <= ASSIGN_TOL, f"kmeans_assign {name}: min d2 |err| {aerr}")
@@ -748,22 +755,26 @@ def assign_phase(torch, dev, ka_ops, ka_ref, cases, build_levels) -> dict:
         flops, n_bytes = 2.0 * g * n * k * d, g * n * d * 4 + g * k * d * 4 + g * n * 8
         bnd = bound_ms(n_bytes, 3 * flops, TF32_FLOP_PER_S)
         p = ka_ops.plan(g, n, k, d, sms)
-        at_shape = [lv for lv in build_levels if ((g, n, d), k) in lv["shapes"]]
-        launches = sum(lv["launches"] for lv in at_shape)
-        pad = at_shape[0]["pad_share"] if at_shape else 0.0
+        at_shape = {v: m for (v, *shape), m in build_launches.items() if shape == [g, n, k, d]}
+        check(set(at_shape) == {"tensor_core"},
+              f"kmeans_assign {name}: the main-path build launched {at_shape} at this shape")
+        launches = at_shape.get("tensor_core", 0)
+        pad = next((lv["pad_share"] for lv in build_levels if ((g, n, d), k) in lv["shapes"]),
+                   0.0)
         out[name] = dict(max_abs_err=aerr, max_rel_err=arel, ms=ms, device_ms=dev_ms,
                          plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
                          bound_bytes_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
                          bound_f32_ms=flops / F32_FLOP_PER_S * 1e3,
-                         variant=p.variant, chunk=p.chunk, grid=p.grid[0], shape=[g, n, k, d],
+                         variant=ran[0], chunk=p.chunk, grid=p.grid[0], shape=[g, n, k, d],
                          launches_at_shape=launches, padding_rows=pad,
                          label_swaps=int(swapped.sum()))
-        print(f"  kmeans_assign {name} ({g}, {n}, {d}) x {k} [{p.variant}, chunk {p.chunk}, "
+        print(f"  kmeans_assign {name} ({g}, {n}, {d}) x {k} [{ran[0]}, chunk {p.chunk}, "
               f"{p.grid[0]} blocks]: {ms:.4f} ms back to back, {dev_ms:.4f} device only (plain "
               f"{plain_ms:.3f}; bound {bnd[0]:.4f} by {bnd[1]} at 3xTF32, bytes "
               f"{out[name]['bound_bytes_ms']:.4f}, float32 CUDA cores "
               f"{out[name]['bound_f32_ms']:.4f}) err {aerr:.1e} rel {arel:.1e}, label swaps "
-              f"{int(swapped.sum())} | {launches} launches at this shape in the build, padding "
+              f"{int(swapped.sum())} | {launches} launches at this shape in the main-path build, "
+              f"padding "
               f"rows {pad:.1%}", flush=True)
     return out
 
@@ -1267,10 +1278,12 @@ def main() -> None:
         SEED, ProteinGenConfig(n_proteins=n_obj, n_families=N_FAMILIES), ecfg, dev,
         chunk_size=gen_chunk)
     torch.cuda.reset_peak_memory_stats()
+    ka_ops.SHAPE_LAUNCHES.clear()
     t0 = time.perf_counter()
     index = lmi.build(SEED, emb, arities=arities, model_type="kmeans", device=dev)
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
+    build_launches = dict(ka_ops.SHAPE_LAUNCHES)  # kmeans_assign's, by (variant, G, n, k, d)
     build_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     store = store_lib.from_lmi(index, FULL["store_dtype"])
     check(index.n_objects == n_obj, "index lost objects")
@@ -1366,19 +1379,18 @@ def main() -> None:
           f"offsets, ids)", flush=True)
     check(same, "two builds from one seed differ")
     del index2
-    # why the seeding sums its CDF in a fixed order: a single-row cumsum over
-    # the root's points on the card scans with a look-back across blocks
+    # the seeding's CDF over the root's points, summed in a fixed order
     row = torch.softmax(emb[:, 0], 0)
-    n_cumsum = len({torch.cumsum(row, 0).cpu().numpy().tobytes() for _ in range(20)})
     n_cdf = len({kmeans._cdf(row).cpu().numpy().tobytes() for _ in range(20)})
-    print(f"seeding CDF over {row.numel()} points, distinct results in 20 calls: torch.cumsum "
-          f"{n_cumsum}, the build's fixed-order CDF {n_cdf}", flush=True)
+    print(f"seeding CDF over {row.numel()} points: {n_cdf} distinct result(s) in 20 calls",
+          flush=True)
     check(n_cdf == 1, "the seeding's CDF differs from call to call")
     for i, lv in enumerate(build_levels):
         rest = lv["fit"] - sum(lv[st] for st in BUILD_STAGES[:4])
         print(f"build breakdown, level {i} ({lv['groups']} group(s), cap {lv['cap']}, padding "
               f"rows {lv['pad_share']:.1%}, {lv['iterations']} Lloyd steps, kmeans_assign "
-              f"launches {lv['launches']} at {sorted(lv['shapes'])}), ms: fit {lv['fit'] * 1e3:.1f}"
+              f"wrapper calls {lv['calls']} at {sorted(lv['shapes'])}), ms: fit "
+              f"{lv['fit'] * 1e3:.1f}"
               " = " + " + ".join(f"{st} {lv[st] * 1e3:.1f}" for st in BUILD_STAGES[:4])
               + f" + other {rest * 1e3:.1f}; padding {lv['padding'] * 1e3:.1f}; children "
               f"{lv['children'] * 1e3:.1f}", flush=True)
@@ -1518,7 +1530,7 @@ def main() -> None:
     # centroids, and level 1's padded groups against their children
     assign_records = assign_phase(torch, dev, ka_ops, ka_ref, (
         ("root", emb[None], index.levels[0]["centroids"][None]),
-        ("level1", level1_points, index.levels[1]["centroids"])), build_levels)
+        ("level1", level1_points, index.levels[1]["centroids"])), build_levels, build_launches)
 
     # ---- 5 (continued). flash attention, pairwise_l2 and embedding_bag at
     # their callers' shapes

@@ -47,15 +47,23 @@ def _cdf(p: torch.Tensor) -> torch.Tensor:
     ``_SCAN_BLOCK`` entries, then the blocks' totals before each block by a
     product with a triangular matrix. (torch.cumsum of a single long row on
     CUDA scans with a look-back across thread blocks, whose float order,
-    and so the seeding's draws, change from run to run.)"""
+    and so the seeding's draws, change from run to run.)
+
+    The scans and the product add in different orders, so a block's first
+    entry can round below the previous block's last; a running maximum
+    (exact, so the same in any order) makes the CDF non-decreasing, and an
+    entry of no mass is then never drawn."""
     n = p.shape[-1]
     m = -(-n // _SCAN_BLOCK)
     blocks = F.pad(p, (0, m * _SCAN_BLOCK - n)).reshape(*p.shape[:-1], m, _SCAN_BLOCK)
     within = torch.cumsum(blocks, dim=-1)
     earlier = torch.ones((m, m), dtype=p.dtype, device=p.device).triu(1)  # [i, j] = i < j
     before = within[..., -1] @ earlier  # (..., m): the totals of the blocks before each
-    cdf = (within + before[..., None]).reshape(*p.shape[:-1], m * _SCAN_BLOCK)
-    return cdf[..., :n].contiguous()
+    cdf = torch.cummax(within + before[..., None], dim=-1).values
+    carry = torch.cummax(cdf[..., -1], dim=-1).values  # (..., m): the max up to each block
+    carry = F.pad(carry[..., :-1], (1, 0))  # ... before each block (p >= 0: 0 before the first)
+    cdf = torch.maximum(cdf, carry[..., None])
+    return cdf.reshape(*p.shape[:-1], m * _SCAN_BLOCK)[..., :n].contiguous()
 
 
 def _choice(gen: torch.Generator, p: torch.Tensor) -> torch.Tensor:

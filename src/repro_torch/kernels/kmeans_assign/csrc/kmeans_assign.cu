@@ -27,13 +27,13 @@
 //    hi = tf32(v) (cvt.rna) and lo = tf32(v - hi), and x.c = hi.lo + lo.hi +
 //    hi.hi (the dropped lo.lo term is ~2^-22 of a product). Both operands
 //    are K-major (point rows, centroid rows), as TF32 wgmma needs, zero-
-//    padded to d_pad = 16, 32, 48 or 64 columns and laid out in wgmma's
+//    padded to d_pad = 48 or 64 columns and laid out in wgmma's
 //    32-byte swizzle (8-column blocks of 32-byte rows; 16-byte chunk c of
 //    row r at c ^ (r / 4) % 2), which keeps the split stores free of bank
 //    conflicts. A block is two warpgroups; each owns 64-row point tiles
 //    in two stages of shared memory. The block keeps its group's
 //    centroids resident (hi, lo and |c|^2, k padded to whole chunks of
-//    N = 64, 128 or 256 centroids, one wgmma m64nNk8 width), and walks,
+//    N = 64 or 256 centroids, one wgmma m64nNk8 width), and walks,
 //    persistent, a contiguous range of 128-row (group, tile) pairs,
 //    reloading the centroids when the group changes. Point rows are d * 4
 //    bytes apart (180 at d = 45, no 16-byte multiple), so neither TMA nor
@@ -210,36 +210,6 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[8][4], uint64_t da, uint64
         "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
         "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
         "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-__device__ __forceinline__ void wgmma_tf32(float (&d)[16][4], uint64_t da, uint64_t db,
-                                           int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-      "%58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
-        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
-        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
-        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
@@ -494,8 +464,6 @@ template <int N>
 int launch_tc_n(const float* x, const float* c, int groups, int n, int k, int d, int kc,
                 int d_pad, int blocks, int32_t* labels, float* mind, cudaStream_t stream) {
   switch (d_pad) {
-    case 16: return launch_tc<N, 2>(x, c, groups, n, k, d, kc, blocks, labels, mind, stream);
-    case 32: return launch_tc<N, 4>(x, c, groups, n, k, d, kc, blocks, labels, mind, stream);
     case 48: return launch_tc<N, 6>(x, c, groups, n, k, d, kc, blocks, labels, mind, stream);
     case 64: return launch_tc<N, 8>(x, c, groups, n, k, d, kc, blocks, labels, mind, stream);
     default: return (int)cudaErrorInvalidValue;
@@ -505,8 +473,8 @@ int launch_tc_n(const float* x, const float* c, int groups, int n, int k, int d,
 }  // namespace
 
 // x (groups, n, d), c (groups, k, d) float32, contiguous; labels/mind (groups, n).
-// variant 0: cuda_core; 1: tensor_core with `chunk` centroids a wgmma (64,
-// 128 or 256), rows zero-padded to d_pad columns (16, 32, 48 or 64, >= d),
+// variant 0: cuda_core; 1: tensor_core with `chunk` centroids a wgmma (64
+// or 256), rows zero-padded to d_pad columns (48 or 64, >= d),
 // at most `blocks` persistent blocks. The wrapper's plan() picks them.
 extern "C" int kmeans_assign_f32(const float* x, const float* c, int groups, int n, int k,
                                  int d, int variant, int chunk, int d_pad, int blocks,
@@ -520,8 +488,6 @@ extern "C" int kmeans_assign_f32(const float* x, const float* c, int groups, int
     switch (chunk) {
       case 64:
         return launch_tc_n<64>(x, c, groups, n, k, d, kc, d_pad, blocks, labels, mind, stream);
-      case 128:
-        return launch_tc_n<128>(x, c, groups, n, k, d, kc, d_pad, blocks, labels, mind, stream);
       case 256:
         return launch_tc_n<256>(x, c, groups, n, k, d, kc, d_pad, blocks, labels, mind, stream);
       default:

@@ -22,16 +22,17 @@ from repro_torch import kernels
 from repro_torch.kernels.kmeans_assign.ref import kmeans_assign_ref
 
 # launches of the CUDA kernel by this wrapper, for run-time proof that a
-# path went through it (chip_smoke.py resets and reads it), in all and by
-# variant
+# path went through it (chip_smoke.py resets and reads it), in all, by
+# variant, and by (variant, G, n, k, d)
 LAUNCHES = {"kmeans_assign": 0}
 VARIANT_LAUNCHES = {"kmeans_assign:tensor_core": 0, "kmeans_assign:cuda_core": 0}
+SHAPE_LAUNCHES: dict[tuple, int] = {}
 
 VARIANTS = ("cuda_core", "tensor_core")  # index = the source's variant code
 _MAX_DIM = 1024  # widest point row the CUDA-core kernel's register tile takes
 TC_MAX_DIM = 64  # widest row of the tensor-core variant
-TC_WIDTHS = (16, 32, 48, 64)  # its padded row widths (the source's d_pad cases)
-TC_CHUNKS = (256, 128, 64)  # centroids a wgmma (N), widest first
+TC_WIDTHS = (48, 64)  # its padded row widths (the source's d_pad cases)
+TC_CHUNKS = (256, 64)  # centroids a wgmma (N), widest first
 TC_ROWS = 128  # point rows of one (group, tile) pair: two warpgroups of 64
 SMEM_LIMIT = 232_448  # a block's opt-in shared memory on the H100
 CC_THREADS = 256  # points a block of the CUDA-core variant (one a thread)
@@ -54,15 +55,6 @@ class Plan:
     grid: tuple[int, int]
     smem_bytes: int
 
-    @property
-    def n_tiles(self) -> int:
-        return self.tiles[0] * self.tiles[1]
-
-    def block_tiles(self, b: int) -> range:
-        """The (group, tile) pairs, group-major, that persistent block ``b``
-        of the tensor-core variant takes (the source's formula)."""
-        return range(self.n_tiles * b // self.grid[0], self.n_tiles * (b + 1) // self.grid[0])
-
 
 def tc_smem_bytes(k_pad: int, d_pad: int) -> int:
     """The tensor-core variant's dynamic shared memory (the source's
@@ -76,10 +68,10 @@ def plan(G: int, n: int, k: int, d: int, sms: int) -> Plan:
     """The kernel's launch for x (G, n, d), centroids (G, k, d) on a card
     of ``sms`` SMs.
 
-    d <= 64 takes the tensor-core variant: rows padded to the next of
-    16 / 32 / 48 / 64 columns, the widest chunk of 256 / 128 / 64
-    centroids whose whole chunks fit shared memory beside the point tiles
-    (no wider than k needs), and one persistent block an SM (a block holds
+    d <= 64 takes the tensor-core variant: rows padded to 48 or 64
+    columns; chunks of 256 centroids (the root's k), or of 64 (level 1's
+    k) when k <= 128 or whole chunks of 256 do not fit shared memory
+    beside the point tiles; one persistent block an SM (a block holds
     most of the SM's shared memory) walking contiguous ranges of the
     G x ceil(n / 128) (group, tile) pairs. Wider rows, or a k whose
     centroids fit in no chunk width, take the CUDA-core variant: one
@@ -149,6 +141,8 @@ def _launch(x: torch.Tensor, c: torch.Tensor):
     kernels.check_status("kmeans_assign", status)
     LAUNCHES["kmeans_assign"] += 1
     VARIANT_LAUNCHES[f"kmeans_assign:{p.variant}"] += 1
+    key = (p.variant, g, n, k, d)
+    SHAPE_LAUNCHES[key] = SHAPE_LAUNCHES.get(key, 0) + 1
     return labels, mind
 
 

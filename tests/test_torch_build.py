@@ -123,6 +123,23 @@ def test_seeding_cdf_is_a_cumulative_sum(shape):
     np.testing.assert_allclose(np_(got), want, rtol=0, atol=2e-6 * float(want[..., -1].max()))
 
 
+def test_seeding_cdf_never_decreases():
+    """Entries of no mass at every block start (points already chosen,
+    padding rows) over the root's 1013 blocks: the block scans and the
+    product of their totals add in different orders, and the CDF must not
+    step down across a block boundary, or an entry of no mass is drawn."""
+    rng = np.random.default_rng(10)
+    p = torch.from_numpy((rng.uniform(size=(2, 518_576)) ** 8).astype(np.float32))
+    p = p / p.sum(-1, keepdim=True)
+    p[:, ::pkm._SCAN_BLOCK] = 0.0
+    cdf = pkm._cdf(p)
+    assert bool((cdf.diff(dim=-1) >= 0).all())
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    draws = torch.stack([pkm._choice(gen, p) for _ in range(200)])
+    assert bool((torch.gather(p, 1, draws.T) > 0).all())
+
+
 def test_choice_draws_by_inverse_cdf():
     """Each row draws where its CDF first reaches the drawn level: only
     indices with mass, and index 0 for an all-zero row."""

@@ -318,6 +318,21 @@ def test_kmeans_assign_wide_rows_take_cuda_cores(dev, d):
     assert launched == {"kmeans_assign:cuda_core": 1}
 
 
+def test_kmeans_assign_many_centroids_take_cuda_cores(dev):
+    """d = 45 with 1000 centroids, whose whole chunks do not fit shared
+    memory beside the point tiles: the CUDA-core variant's register tile of
+    <= 64, over four shared-memory chunks of centroids."""
+    rng = np.random.default_rng(45)
+    x = torch.from_numpy(rng.uniform(0, 1, (1, 2000, 45)).astype(np.float32)).to(dev)
+    c = torch.from_numpy(rng.uniform(0, 1, (1, 1000, 45)).astype(np.float32)).to(dev)
+    c[0, -1] = c[0, 0]  # a tied pair: the lower index must win
+    x[0, 0] = c[0, 0]
+    assert ka_ops.plan(1, 2000, 1000, 45, 132).variant == "cuda_core"
+    kl, launched = _assign_case(dev, x, c)
+    assert launched == {"kmeans_assign:cuda_core": 1}
+    assert int(kl[0, 0]) == 0
+
+
 def test_build_reproduces_from_its_seed(dev):
     """Two builds from one seed on the card give bitwise-equal indexes:
     every level's centroids, the bucket offsets and the ids (the Lloyd

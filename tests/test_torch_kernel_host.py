@@ -209,12 +209,13 @@ def test_kmeans_assign_plan_blocks_cover_every_tile(case):
     if p.variant != "tensor_core":
         return
     assert p.tiles == (g, -(-n // ka_ops.TC_ROWS)) and p.tiles[1] * p.tile >= n
-    assert p.grid == (min(p.n_tiles, sms), 1)
-    seen = np.zeros(p.n_tiles, np.int64)
-    for b in range(p.grid[0]):
-        r = p.block_tiles(b)
-        assert len(r) >= 1
-        seen[r.start:r.stop] += 1
+    n_tiles, blocks = p.tiles[0] * p.tiles[1], p.grid[0]
+    assert blocks == min(n_tiles, sms) and p.grid[1] == 1
+    seen = np.zeros(n_tiles, np.int64)
+    for blk in range(blocks):  # the source's range of block blk, group-major
+        start, stop = n_tiles * blk // blocks, n_tiles * (blk + 1) // blocks
+        assert stop > start
+        seen[start:stop] += 1
     assert (seen == 1).all()
 
 
